@@ -6,10 +6,12 @@ beside it, module for module, and is held against it by the parity tests
 of the JAX package it uses is the stdlib-only ``rub_mimo_tpu.config``,
 re-exported here so callers need nothing else.
 
-Ported so far: the 2x2 RX_ZF decode main path (sync, matched filter, LS
-estimate, ZF/MMSE weights, payload tail), the TX side and channel
-simulator that build its captures, and the hand-written CUDA payload
-kernel (kernels/csrc/payload_fused_strip.cu).
+Ported so far: the 2x2 RX_ZF decode with its acquisition options
+(sync impls coarse / xla / pallas, the S0 fallback, CFO correction,
+channel smoothing, the measured-noise MMSE, the debug outputs), the TX
+side and channel simulator that build its captures, and three
+hand-written CUDA kernels (kernels/csrc/): the payload tail, the
+one-pass sync and the S&C metric.
 """
 
 from rub_mimo_tpu.config import (

@@ -6,7 +6,8 @@ per-config constants and the per-capture channel state a decode derives.
 it over with ``np.asarray``; this module imports no jax) and returns it
 as tensors of the port's dtypes on ``device``, so the port's later stages
 can run on the JAX package's earlier results — e.g. the payload tail on
-JAX's W and gain, isolated from estimation rounding.
+JAX's W and gain, isolated from estimation rounding, or the CFO
+de-rotations on JAX's cfo_hat and cfo_coarse.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ STATE_KEYS = {
     "normalize_gain": ("f", torch.float32, 1),   # [M_occ]
     "ac_index": ("i", torch.int64, 2),            # [streams, codes*streams]
     "decode_start": ("i", torch.int64, 0),        # scalar
+    "sync_index": ("i", torch.int64, 0),          # scalar
+    "cfo_hat": ("f", torch.float32, 0),           # total CFO, subcarriers
+    "cfo_coarse": ("f", torch.float32, 0),        # its whole-capture part
 }
 
 

@@ -13,8 +13,9 @@ import torch
 
 
 def mmse_weights(G: torch.Tensor,
-                 noise_var: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """G [..., N, N] (rx x tx) -> (W [..., N, N] complex64, gain [...] = 1)
+                 noise_var) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G [..., N, N] (rx x tx), noise_var a float or a float32 device
+    scalar -> (W [..., N, N] complex64, gain [...] = 1)
     in the form detect.zf.equalize takes."""
     N = G.shape[-1]
     Gh = torch.conj(G.transpose(-1, -2))

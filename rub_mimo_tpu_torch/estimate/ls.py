@@ -9,7 +9,8 @@ matched-filter offset and accumulate
 then scale by dft_normalizer / num_access_codes, dft_normalizer =
 1/sqrt(M_occupied).  bit_exact=True keeps the reference's identity bias
 (G starts at identity and is never zeroed, framing.cc:302-319).  The
-noise-variance helpers are not ported yet.
+noise variance at the equalizer input (for ``mmse_auto_noise``) comes
+from the same code FFTs.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from rub_mimo_tpu.config import ModemConfig
 from rub_mimo_tpu_torch.ofdm import preamble, sctype
+from rub_mimo_tpu_torch.utils.gather import gather_windows
 
 
 def code_ffts(window: torch.Tensor, offsets: torch.Tensor,
@@ -35,12 +37,9 @@ def code_ffts(window: torch.Tensor, offsets: torch.Tensor,
     S = cfg.num_streams
     M = cfg.M
     n_codes = offsets.shape[0]
-    W = window.shape[-1]
-    starts = torch.clamp(offsets.reshape(-1), 0, W - M)
     rx_ids = torch.arange(S, device=window.device).repeat_interleave(S)
     rx_ids = rx_ids.repeat(n_codes)  # rx varies over the middle axis
-    idx = starts.unsqueeze(1) + torch.arange(M, device=window.device)
-    wins = window[rx_ids.unsqueeze(1), idx]
+    wins = gather_windows(window, rx_ids, offsets.reshape(-1), M)
     return torch.fft.fft(wins.reshape(n_codes, S, S, M), dim=-1)
 
 
@@ -78,3 +77,29 @@ def estimate_channel(window: torch.Tensor, ac_index: torch.Tensor,
     """LS channel estimate Ghat: [M, num_streams(rx), num_streams(tx)]."""
     X = code_ffts(window, ac_offsets(ac_index, cfg), cfg)
     return channel_from_ffts(X, cfg)
+
+
+def estimate_noise_var(window: torch.Tensor, ac_index: torch.Tensor,
+                       G: torch.Tensor, cfg: ModemConfig) -> torch.Tensor:
+    """Data-aided noise variance at the equalizer input (float32 scalar):
+    sigma^2 for detect.mmse.mmse_weights (ls.py:154-174 of the JAX
+    package)."""
+    X = code_ffts(window, ac_offsets(ac_index, cfg), cfg)
+    return noise_var_from_ffts(X, G, cfg)
+
+
+def noise_var_from_ffts(X: torch.Tensor, G: torch.Tensor,
+                        cfg: ModemConfig) -> torch.Tensor:
+    """Each code FFT over S1 is ~ Ghat sqrt(M_occ) + noise; the residual's
+    mean power over the occupied bins, scaled by 1/M_occ to the payload's
+    1/sqrt(M_occ) normalization.  The channel-estimation error in the
+    residual (order 1/codes) errs on the high side, safe for MMSE."""
+    S = cfg.num_streams
+    S1, occ = _s1_and_mask(cfg, X.device)
+    m_occ = sctype.m_occupied(cfg)
+    ratio = X / torch.where(occ, S1, 1.0)  # [code, rx, tx, M]
+    mean = G.permute(1, 2, 0)[None] * np.float32(np.sqrt(m_occ))
+    resid2 = (ratio - mean).abs() ** 2
+    var_f = torch.where(occ, resid2, 0.0).sum() / (
+        cfg.num_access_codes * S * S * m_occ)
+    return (var_f / m_occ).to(torch.float32)

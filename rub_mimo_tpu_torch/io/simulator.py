@@ -1,12 +1,13 @@
 """Synthetic MIMO channel simulator — stands in for the USRP radios.
 
 Port of rub_mimo_tpu/io/simulator.py: seeded flat or FIR MIMO mixing, a
-leading delay (timing offset), trailing silence and AWGN.  The channel
+carrier frequency offset, a leading delay (timing offset), trailing
+silence and AWGN.  The channel
 draw is numpy and gives the same ``h`` as the JAX package for the same
 seed; the noise comes from a seeded ``torch.Generator`` on the capture's
 device, so it does NOT match ``jax.random`` — parity tests compare the
 noise-free signal (snr_db=inf) or feed one capture to both decoders.
-CFO, SFO, IQ imbalance, DC offset and drift are not ported yet.
+SFO, IQ imbalance, DC offset and drift are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class ChannelSpec:
     num_taps: int = 1           # >1 and not flat -> random FIR taps
     delay: int = 1000           # leading samples before the frame
     trailing: int = 2048        # trailing samples after the frame
+    cfo_subcarriers: float = 0.0  # CFO in subcarrier-spacing units
     seed: int = 1234
     identity: bool = False      # H = I (loopback)
     diagonal_dominance: float = 2.0  # scales the diagonal of random H
@@ -56,11 +58,12 @@ def draw_channel(spec: ChannelSpec, num_rx: int, num_tx: int) -> np.ndarray:
     return h.astype(np.complex64)
 
 
-def apply_channel(tx: torch.Tensor, h: np.ndarray,
-                  spec: ChannelSpec) -> torch.Tensor:
+def apply_channel(tx: torch.Tensor, h: np.ndarray, spec: ChannelSpec,
+                  cfg: Optional[ModemConfig] = None) -> torch.Tensor:
     """Propagate tx [tx_streams, T] through h: returns rx
     [rx_streams, T + delay + trailing + taps - 1] complex64 on tx's
-    device, with AWGN at spec.snr_db against the mean tx power."""
+    device, rotated by the CFO (which needs cfg for the subcarrier
+    spacing), with AWGN at spec.snr_db against the mean tx power."""
     h = torch.as_tensor(h, device=tx.device)
     taps = h.shape[-1]
     T = tx.shape[-1]
@@ -72,6 +75,11 @@ def apply_channel(tx: torch.Tensor, h: np.ndarray,
         Xf = torch.fft.fft(tx, n=nfft, dim=-1)
         Hf = torch.fft.fft(h, n=nfft, dim=-1)
         y = torch.fft.ifft(torch.einsum("rtn,tn->rn", Hf, Xf), dim=-1)[:, :L]
+    if spec.cfo_subcarriers != 0.0:
+        if cfg is None:
+            raise ValueError("cfo requires cfg for subcarrier spacing")
+        n = torch.arange(y.shape[-1], dtype=torch.float32, device=y.device)
+        y = y * torch.exp(2j * np.pi * spec.cfo_subcarriers * n / cfg.M)
     y = torch.nn.functional.pad(y, (spec.delay, spec.trailing))
 
     sig_power = torch.mean(tx.real ** 2 + tx.imag ** 2)
@@ -96,4 +104,4 @@ def simulate_capture(cfg: ModemConfig, spec: ChannelSpec,
         tx_data = framegen.generate_payload_symbols(cfg, seed=payload_seed)
     h = draw_channel(spec, cfg.num_streams, cfg.num_streams)
     tx = framegen.transmit_frame(cfg, tx_data, device=device)
-    return apply_channel(tx, h, spec), tx_data, h
+    return apply_channel(tx, h, spec, cfg), tx_data, h

@@ -7,9 +7,11 @@ compiled with
          -Xcompiler -fPIC
 
 into ``rub_mimo_tpu_torch/_build/<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edit rebuilds) and loaded with ctypes.  Only
-sources in this package are built.  Nothing here runs at import: the
-package imports on machines without nvcc or a GPU.
+source, every shared header ``csrc/*.cuh`` and the flags, so an edit to
+either rebuilds) and loaded with ctypes.  ``build_all`` compiles several
+sources at once, one nvcc each.  Only sources in this package are built.
+Nothing here runs at import: the package imports on machines without nvcc
+or a GPU.
 """
 
 from __future__ import annotations
@@ -44,29 +46,47 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the built library for csrc/<name>.cu lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> list:
+    """Compile each csrc/<name>.cu that is not built yet, all nvcc
+    processes at once; return the libraries' paths.  The compiler's
+    report (registers, shared memory, spills) is kept beside each library
+    as <library>.log.  Raises if any build fails."""
+    outs = [library_path(n) for n in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        Path(str(out) + ".log").write_text(log)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the same source is already built.
-    The compiler's report (registers, shared memory, spills) is kept
-    beside the library as <library>.log.  Raises on a failed build."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out
+    """Compile csrc/<name>.cu unless the same source is already built."""
+    return build_all([name])[0]
 
 
 @functools.lru_cache(maxsize=None)

@@ -12,10 +12,15 @@ and sync fires at the first sample where every stream (or cfg.sync_quorum
 streams) has held metric > threshold for more than cp_len samples;
 sync_index = floor(mean of the run starts) (framing.cc:601-623).
 
-Each ``lax.cond`` of the JAX package becomes a Python ``if`` on a 0-d
-tensor — a host synchronization on a GPU: one in the prefix early exit
-and one in the coarse scan's exactness fallback.  The tile-aligned MXU
-block-sum form of the JAX package (a TPU layout workaround) is dropped.
+Three implementations, as in the JAX package (``synchronize(impl=)``):
+"coarse" (coarse+refine scan with the prefix early exit, the default),
+"xla" (the full-rate scan: the metric of the whole capture, from K6 on
+CUDA) and "pallas" (the one-pass kernel K5 on CUDA).  Each ``lax.cond``
+of the coarse path becomes a Python ``if`` on a 0-d tensor — a host
+synchronization on a GPU: one in the prefix early exit and one in the
+coarse scan's exactness fallback; the other two read nothing back.  The
+tile-aligned MXU block-sum form of the JAX package (a TPU layout
+workaround) is dropped.
 """
 
 from __future__ import annotations
@@ -27,7 +32,11 @@ import torch
 import torch.nn.functional as F
 
 from rub_mimo_tpu.config import ModemConfig
-from rub_mimo_tpu_torch.utils.movsum import delay, moving_sum
+from rub_mimo_tpu_torch.kernels import sc_metric as k6
+from rub_mimo_tpu_torch.kernels import sc_sync as k5
+from rub_mimo_tpu_torch.kernels.sc_sync import plateau_scan
+
+IMPLS = ("coarse", "xla", "pallas")
 
 
 class SyncResult(NamedTuple):
@@ -39,38 +48,14 @@ class SyncResult(NamedTuple):
     plateau_start: torch.Tensor  # int64[streams] — run start at t*
     plateau_end: torch.Tensor    # int64[streams] — == t*
     cfo_hat: torch.Tensor        # float32 — CFO estimate, subcarrier units
+    metric: Optional[torch.Tensor] = None  # float32[streams, T] if kept
 
 
 def sc_metric(x: torch.Tensor, M: int, *, block: int = 1 << 15):
     """S&C timing metric for rows x [..., T] complex: (metric float32,
     corr complex64 — the un-squared moving correlation, for CFO)."""
-    M2 = M // 2
-    prod = torch.conj(delay(x, M2)) * x
-    corr = -moving_sum(prod, M2, block=block)
-    energy = 0.5 * moving_sum(x.real ** 2 + x.imag ** 2, M, block=block)
-    metric = (corr.real ** 2 + corr.imag ** 2) / (energy * energy)
-    return metric, corr
-
-
-def plateau_scan(metric: torch.Tensor, cp_len: int, threshold: float,
-                 quorum: Optional[int] = None):
-    """Vectorized serial plateau state machine over metric [S, T].
-
-    Returns (synced, t_star, run_start[S] at t*, participates[S] at t*).
-    A stream's run start at t is (last index with metric <= thr before t)
-    + 1; the fire condition at t is >= quorum (default all) streams with
-    metric > thr and t - run_start > cp_len; t* is the first fire."""
-    S, T = metric.shape
-    q = S if quorum is None else quorum
-    above = metric > threshold  # NaN > thr is False, as in C
-    idx = torch.arange(T, device=metric.device).expand(S, T)
-    last_below = torch.cummax(
-        torch.where(above, torch.full_like(idx, -1), idx), dim=1).values
-    run_start = last_below + 1
-    cond = above & ((idx - run_start) > cp_len)
-    fire = cond.sum(dim=0) >= q
-    t_star = torch.argmax(fire.to(torch.uint8))
-    return fire[t_star], t_star, run_start[:, t_star], cond[:, t_star]
+    corr, energy = k6.moving_corr_energy(x, M, block=block)
+    return k6.metric_from(corr, energy), corr
 
 
 def sync_index_from(starts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -265,22 +250,73 @@ def _synchronize_coarse(x: torch.Tensor, cfg: ModemConfig,
     )
 
 
-def _synchronize_full(x: torch.Tensor, cfg: ModemConfig,
-                      block: int) -> SyncResult:
-    """The full-rate scan: metric over the whole capture, plateau scan."""
-    metric, corr = sc_metric(x, cfg.M, block=block)
+def corr_at(x: torch.Tensor, t: torch.Tensor, M: int) -> torch.Tensor:
+    """corr[:, t] for x [S, T] and a device scalar t, from the plain S&C
+    sums over the M samples that end at t (zeros before sample 0): the
+    lag products it sums need no earlier sample."""
+    idx = t - (M - 1) + torch.arange(M, device=x.device)
+    win = torch.where(idx >= 0, x[:, idx.clamp(min=0)], 0)
+    return k6.moving_corr_energy(win, M, block=M)[0][:, -1]
+
+
+def _synchronize_full(x: torch.Tensor, cfg: ModemConfig, block: int,
+                      keep_metric: bool = False) -> SyncResult:
+    """The full-rate scan: the metric of the whole capture (K6 on CUDA),
+    the plateau scan, and the correlation at t*."""
+    metric = k6.sc_metric_fused(x, cfg.M, block=block)
     synced, t_star, starts, mask = plateau_scan(
         metric, cfg.cp_len, cfg.plateau_threshold, cfg.sync_quorum)
     return SyncResult(
         synced=synced, sync_sample=t_star,
         sync_index=sync_index_from(starts, mask),
         plateau_start=starts, plateau_end=t_star.expand(cfg.num_streams),
-        cfo_hat=_cfo_from(corr[:, t_star], mask),
+        cfo_hat=_cfo_from(corr_at(x, t_star, cfg.M), mask),
+        metric=metric if keep_metric else None,
+    )
+
+
+def _synchronize_kernel(x: torch.Tensor, cfg: ModemConfig,
+                        block: int) -> SyncResult:
+    """The one-pass sync K5 (all-streams rule): sync_index is the floor
+    mean of every stream's run start, the CFO comes from every stream's
+    correlation at t* (schmidl_cox.py:524-543 of the JAX package)."""
+    S = cfg.num_streams
+    synced, t_star, starts, c_at = k5.sc_sync_fused(
+        x, cfg.M, cfg.cp_len, cfg.plateau_threshold, block=block)
+    return SyncResult(
+        synced=synced, sync_sample=t_star,
+        sync_index=torch.div(starts.sum(), S, rounding_mode="floor"),
+        plateau_start=starts, plateau_end=t_star.expand(S),
+        cfo_hat=_cfo_from(c_at, torch.ones_like(synced).expand(S)),
     )
 
 
 def synchronize(x: torch.Tensor, cfg: ModemConfig, *,
-                block: int = 1 << 15) -> SyncResult:
-    """Sync stage: coarse+refine scan with the prefix early exit (the
-    path the JAX package's measured dispatch takes), x [S, T] complex."""
-    return _synchronize_coarse_prefix(x, cfg, block)
+                keep_metric: bool = False, block: int = 1 << 15,
+                impl: str = "coarse") -> SyncResult:
+    """Sync stage of x [S, T] complex, with the JAX package's impl names:
+    "coarse" (coarse+refine scan with the prefix early exit), "xla" (the
+    full-rate scan) or "pallas" (the one-pass kernel K5).  keep_metric
+    takes the full-rate scan and returns its metric, except under
+    "pallas", which keeps no metric; a sync_quorum config turns "pallas"
+    into "coarse" (K5 has the all-streams rule only)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown sync impl {impl!r}; expected one of "
+                         f"{IMPLS}")
+    if cfg.sync_quorum is not None and impl == "pallas":
+        impl = "coarse"
+    if impl == "pallas":
+        return _synchronize_kernel(x, cfg, block)
+    if impl == "coarse" and not keep_metric:
+        return _synchronize_coarse_prefix(x, cfg, block)
+    return _synchronize_full(x, cfg, block, keep_metric)
+
+
+def correct_cfo(x: torch.Tensor, cfo_subcarriers: torch.Tensor,
+                M: int) -> torch.Tensor:
+    """De-rotate x [..., T] by a CFO in subcarrier-spacing units (a device
+    scalar): x[t] exp(-2 pi i cfo t / M), t counted as float32 as in the
+    JAX package (schmidl_cox.py:551-558)."""
+    n = torch.arange(x.shape[-1], dtype=torch.float32, device=x.device)
+    rot = torch.exp(-2j * np.pi * cfo_subcarriers * n / M)
+    return (x * rot).to(torch.complex64)

@@ -21,9 +21,7 @@ import torch_oracle as oracle
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 
-INT_FIELDS = ("synced", "sync_index", "sync_sample", "plateau_start",
-              "plateau_end", "s0_index", "ac_index", "decode_start",
-              "rx_data", "symbol_valid")
+INT_FIELDS = oracle.INT_FIELDS
 
 CASES = {
     "tiny": (oracle.TINY, dict()),
@@ -83,6 +81,44 @@ def test_planes_and_complex_decoders_agree(decoded):
     assert torch.equal(serving.rx_data, got.rx_data)
 
 
+# the decode options of the acquisition front end, each alone at TINY:
+# (config, capture options, decode options)
+OPTION_CASES = {
+    "cfo": (oracle.TINY.replace(correct_cfo=True),
+            dict(cfo_subcarriers=0.05), dict()),
+    "fallback_low_snr": (oracle.TINY.replace(sync_fallback=True),
+                         dict(snr_db=8.0), dict()),
+    "fallback_cfo_low_snr": (
+        oracle.TINY.replace(sync_fallback=True, correct_cfo=True),
+        dict(snr_db=8.0, cfo_subcarriers=0.05), dict()),
+    "smooth": (oracle.TINY.replace(smooth_channel=True), dict(), dict()),
+    "mmse_auto_noise": (oracle.TINY.replace(
+        bit_exact=False, detector=Detector.MMSE, mmse_auto_noise=True),
+        dict(), dict()),
+    "keep_debug": (oracle.TINY, dict(), dict(keep_debug=True)),
+    "sync_pallas": (oracle.TINY, dict(), dict(sync_impl="pallas")),
+    "sync_xla": (oracle.TINY, dict(), dict(sync_impl="xla")),
+}
+
+
+@pytest.mark.parametrize("case", list(OPTION_CASES))
+def test_decode_options_match_jax(case):
+    cfg, cap_kw, kw = OPTION_CASES[case]
+    cap, tx = oracle.jax_capture(cfg, **cap_kw)
+    ref = oracle.jax_decode(cap, cfg, **kw)
+    got = rx.make_decoder(cfg, device="cpu", **kw)(cap)
+    assert bool(ref.synced)
+    oracle.assert_decode_matches_jax(got, ref)
+    assert (got.metric is None) == (case != "keep_debug")
+    if case.startswith("fallback"):
+        # only the S0 cross-correlation acquires at this SNR
+        assert not bool(rx.decode(oracle.t(cap), oracle.TINY).synced)
+    ser = report.score(got, tx, cfg).symbol_error_rate
+    assert ser == jreport.score(ref, tx, cfg).symbol_error_rate
+    if not case.startswith("fallback"):
+        assert ser == [0.0, 0.0]
+
+
 def _golden():
     import json
 
@@ -112,9 +148,9 @@ def test_golden_capture_decodes_to_expected():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(correct_cfo=True), dict(use_all_carriers=False),
+    dict(track_channel=True), dict(use_all_carriers=False),
     dict(mode=CommMode.SISO), dict(detector=Detector.ML),
-    dict(track_phase=True), dict(sync_fallback=True)])
+    dict(track_phase=True), dict(detector=Detector.SIC)])
 def test_unported_options_raise(kw):
     cfg = ModemConfig(**{**dict(num_subcarriers=64, cp_len=16,
                                 num_access_codes=4, pid_max=8), **kw})

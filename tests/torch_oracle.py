@@ -46,6 +46,41 @@ def jax_decode(cap: np.ndarray, cfg: ModemConfig, **kw):
     return rx.decode(jnp.asarray(cap), cfg, **kw)
 
 
+# the integer fields of a DecodeResult: equal in every parity test
+INT_FIELDS = ("synced", "sync_index", "sync_sample", "plateau_start",
+              "plateau_end", "s0_index", "ac_index", "decode_start",
+              "rx_data", "symbol_valid")
+
+
+def assert_decode_matches_jax(got, ref) -> None:
+    """The port's DecodeResult against the JAX one of the same capture:
+    integer fields equal; G and W within rtol 1e-4 (estimation rounding);
+    cfo_hat and cfo_coarse within 1e-5; the debug outputs kept on both
+    sides or on neither, and where kept the metric within 1e-5 where it
+    exceeds 0.5 (the plateau rule reads it only near its threshold; noise
+    windows are ratios of cancelled sums) and the matched filter's traces
+    within 1e-5 of their peak."""
+    for f in INT_FIELDS:
+        np.testing.assert_array_equal(n(getattr(got, f)),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    for f in ("G", "W"):
+        np.testing.assert_allclose(n(getattr(got, f)),
+                                   np.asarray(getattr(ref, f)), rtol=1e-4,
+                                   atol=1e-6, err_msg=f)
+    for f in ("cfo_hat", "cfo_coarse"):
+        assert abs(float(getattr(got, f)) - float(getattr(ref, f))) < 1e-5, f
+    for f in ("metric", "mf_traces"):
+        assert (getattr(got, f) is None) == (getattr(ref, f) is None), f
+    if ref.metric is not None:
+        m, jm = n(got.metric), np.asarray(ref.metric)
+        near = jm > 0.5
+        assert m.dtype == np.float32 and near.any()
+        np.testing.assert_allclose(m[near], jm[near], rtol=0, atol=1e-5)
+    if ref.mf_traces is not None:
+        tr, jtr = n(got.mf_traces), np.asarray(ref.mf_traces)
+        np.testing.assert_allclose(tr, jtr, rtol=0, atol=1e-5 * jtr.max())
+
+
 def jax_state(result) -> dict:
     """The per-capture channel state of a JAX DecodeResult, as numpy,
     in the keys convert.from_jax_state takes."""
