@@ -5,27 +5,44 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (K1 the
-payload tail, K5 the one-pass sync, K6 the S&C metric; one nvcc each, all
-at once) and holds each against its plain PyTorch version: K1 on seeded
-random payloads, K6 on a seeded random capture and the operating-point
-capture, K5 on six captures (the operating point, the earliest fire at
-full width and at M=64, a fire in the last tile, noise only, 10^5 leading
-zeros).  Then it decodes the reference operating point end to end through
-``make_decoder(..., input_format="planes")`` on each path this port
-offers: the default coarse sync, ``sync_impl="pallas"`` (K5),
-``keep_debug=True`` (K6), and the CFO config (correct_cfo, sync_fallback,
-smooth_channel) on a capture with a CFO.  Every launch count is set to 0
-just before a path runs and read just after.  It decodes the checked-in
-golden capture, times the decodes and the kernels with CUDA events, and
-breaks the decode down by stage (CUDA events per stage, torch.profiler
-for the device's busy time).  Each phase prints one JSON line; any failed
-check raises, so the exit code is non-zero.  The last line is the device
-summary {"ok": true, "device": {...}}.  There is no CPU path: without a
-CUDA device the script exits non-zero before printing anything.
+strip-fused payload tail, K2 the fused payload tail, K3 equalize +
+demap, K4 the hard demap, K5 the one-pass sync, K6 the S&C metric, K7
+the CP strip; one nvcc per source, all at once) and holds each against
+its plain PyTorch version: K1 on seeded random payloads, K6 on a seeded
+random capture and the operating-point capture, K5 on six captures (the
+operating point, the earliest fire at full width and at M=64, a fire in
+the last tile, noise only, 10^5 leading zeros), K7 on complex64 and
+float32 payloads (bit for bit), K4 at three widths and point counts and
+on the symbols the "xla" decode hands it, K3 and K2 on seeded random
+symbols.  Then it decodes the reference operating
+point end to end through ``make_decoder(..., input_format="planes")`` on
+each path this port offers: the default coarse sync,
+``sync_impl="pallas"`` (K5), ``keep_debug=True`` (K6), the CFO config
+(correct_cfo, sync_fallback, smooth_channel) on a capture with a CFO;
+the mimo_2x2_zf preset under the four payload impls ("auto" K1, "fused"
+K7 + K2, "eqdemap" K7 + K3, "xla" K7 + K4); the generic payload tail's
+modes and detectors at full width (siso_loopback, guard bands with and
+without normalize_rx_scale, Alamouti, RX_DIVERSITY, SIC, ML, channel
+and phase tracking); and the wifi_like preset at its own width against
+the port's CPU decode of the same capture.  Every launch count is set to
+0 just before a path runs and read just after.  It decodes the
+checked-in golden capture, times the decodes and the kernels with CUDA
+events, and breaks the default decode down by stage (CUDA events per
+stage, torch.profiler for the device's busy time), and times each
+payload_impl's whole tail (strip to decisions) on the card.  Each phase
+prints one
+JSON line; any failed check raises, so the exit code is non-zero.  The
+line before the last lists every kernel with its launches on its path,
+its error against its plain version, its time, the plain version's time,
+its bound on this card and, where one PyTorch call computes the same
+function, that call's time.  The last line is the device summary
+{"ok": true, "device": {...}}.  There is no CPU path: without a CUDA
+device the script exits non-zero before printing anything.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -50,6 +67,32 @@ CFO_TOL = 1e-4       # |delta cfo| of K5's corr at t* (a direct sum)
 INT_FIELDS = ("synced", "sync_index", "sync_sample", "plateau_start",
               "plateau_end", "s0_index", "ac_index", "decode_start",
               "rx_data", "symbol_valid")
+MODE_ITERS = 10      # timing runs of each generic-tail decode
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
+# kernel -> (module in rub_mimo_tpu_torch.kernels, wrapper, CUDA source,
+# the TPU kernel it replaces)
+KERNELS = {
+    "payload_fused_strip": ("payload_fused", "payload_fused_strip",
+                            "payload_fused_strip",
+                            "rub_mimo_tpu/kernels/payload_fused.py:548"),
+    "payload_fused": ("payload_fused", "payload_fused", "payload_fused",
+                      "rub_mimo_tpu/kernels/payload_fused.py:317"),
+    "eq_demap": ("eq_demap", "eq_demap", "eq_demap",
+                 "rub_mimo_tpu/kernels/eq_demap.py:176"),
+    "demap": ("eq_demap", "demap", "eq_demap",
+              "rub_mimo_tpu/kernels/eq_demap.py:163"),
+    "sc_sync": ("sc_sync", "sc_sync_fused", "sc_sync",
+                "rub_mimo_tpu/kernels/sc_sync.py:168"),
+    "sc_metric": ("sc_metric", "sc_metric_fused", "sc_metric",
+                  "rub_mimo_tpu/kernels/sc_metric.py:85"),
+    "cp_strip": ("cp_strip", "cp_strip", "cp_strip",
+                 "rub_mimo_tpu/kernels/cp_strip.py:62"),
+}
+PAYLOAD_KERNELS = ("payload_fused_strip", "payload_fused", "eq_demap",
+                   "demap", "cp_strip")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -83,6 +126,7 @@ def top2_margin(y: torch.Tensor, table: np.ndarray) -> torch.Tensor:
 def compare(sig, data, ref_sig, ref_data, table) -> dict:
     """Kernel vs plain: decision mismatches (each must be a near-tie of
     the plain scores) and the rx_sig error relative to the plain RMS."""
+    torch.cuda.synchronize()
     bad = data != ref_data
     n_bad = int(bad.sum())
     margins = top2_margin(ref_sig[bad], table).tolist() if n_bad else []
@@ -154,27 +198,31 @@ def stage_times(cfg, re: torch.Tensor, im: torch.Tensor, sync_index: int
         "matched_filter": lambda: matched_filter.search(region, cfg,
                                                         joint=joint),
         "ls": lambda: ls.estimate_channel(region, mf.ac_index, cfg),
-        "weights": lambda: weights_mod.weights_for(cfg, G),
+        "weights": lambda: weights_mod.weights_for(cfg, G, G),
         "payload_extract": payload_extract,
     }
     return {name: cuda_ms(fn)["median_ms"] for name, fn in stages.items()}
 
 
-def device_busy(fn, n: int = 5) -> dict:
+def device_busy(fn, n: int = 5, tries: int = 3) -> dict:
     """torch.profiler over n calls of fn: the card's busy ms per call (the
-    union of its kernel and copy intervals) and kernels per call; busy is
-    None when the profiler recorded no device activity."""
+    union of its kernel and copy intervals) and kernels per call.  A
+    session that recorded no device activity is run again, up to
+    ``tries`` sessions; busy is None when none recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
         if b > end:
@@ -191,12 +239,34 @@ def device_busy(fn, n: int = 5) -> dict:
 
 def launch_counts() -> dict:
     """The launch-counted wrappers of the port's kernels, by kernel."""
-    from rub_mimo_tpu_torch.kernels import payload_fused as pf
-    from rub_mimo_tpu_torch.kernels import sc_metric as k6
-    from rub_mimo_tpu_torch.kernels import sc_sync as k5
+    return {name: getattr(importlib.import_module(
+        f"rub_mimo_tpu_torch.kernels.{mod}"), attr)
+        for name, (mod, attr, _, _) in KERNELS.items()}
 
-    return {"payload_fused_strip": pf.payload_fused_strip,
-            "sc_sync": k5.sc_sync_fused, "sc_metric": k6.sc_metric_fused}
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the float32 operations over the peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": n_bytes, "flops": flops}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def tail_flops(S: int, n_sym: int, M: int, K: int, fft: bool) -> float:
+    """Float32 operations of the payload tails: the radix-2 FFT
+    (5 M log2 M per row), the S x S complex equalize (8 per complex
+    multiply-add, 2 for the gain) and the demap (4 per point)."""
+    rows = S * n_sym
+    ops = rows * M * (8 * S + 2 + 4 * K)
+    if fft:
+        ops += rows * 5 * M * np.log2(M)
+    return float(ops)
 
 
 def drive(fn):
@@ -280,17 +350,122 @@ def check_sync(name: str, x: torch.Tensor, cfg) -> dict:
     return out
 
 
+def same_decode(r, ref, table, what: str) -> dict:
+    """Decode r against decode ref of the same capture: integer fields
+    equal, decisions equal but at near-ties of ref's equalized symbols."""
+    for f in INT_FIELDS:
+        if f != "rx_data":
+            require(torch.equal(getattr(r, f), getattr(ref, f)),
+                    f"{what}: {f} differs")
+    return compare(None, r.rx_data, ref.rx_sig, ref.rx_data, table)
+
+
+def check_payload_kernels(dev, cfg) -> dict:
+    """K7, K4, K3 and K2 against their plain versions on seeded inputs at
+    the operating point's shapes: K7 bit for bit, the others' decisions
+    equal but at near-ties, their symbols within SIG_REL_TOL of RMS.
+    Returns each kernel's case at the main path's shapes for the times
+    and the kernels line."""
+    from rub_mimo_tpu_torch import Modulation
+    from rub_mimo_tpu_torch.detect import zf
+    from rub_mimo_tpu_torch.kernels import cp_strip as k7
+    from rub_mimo_tpu_torch.kernels import eq_demap as k34
+    from rub_mimo_tpu_torch.kernels import payload_fused as pf
+    from rub_mimo_tpu_torch.ofdm import constellation
+
+    S, M, sym, n_sym = 2, cfg.M, cfg.symbol_len, cfg.pid_max
+    rng = np.random.default_rng(7)
+    out = {}
+    for dtype in (torch.complex64, torch.float32):
+        w = 2 if dtype == torch.complex64 else 1
+        p = torch.as_tensor(rng.standard_normal(
+            (S, w * n_sym * sym)).astype(np.float32), device=dev)
+        if dtype == torch.complex64:
+            p = p.view(torch.complex64)
+        got = k7.cp_strip(p, n_sym, sym, cfg.cp_len)
+        ref = k7.cp_strip_reference(p, n_sym, sym, cfg.cp_len)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        require(torch.equal(got, ref), f"K7 {dtype} differs from plain")
+        emit({"phase": "k7_vs_plain", "dtype": str(dtype),
+              "shape": list(p.shape), "bit_equal": True,
+              "max_abs_err": err})
+        if dtype == torch.complex64:
+            out["cp_strip"] = dict(args=(p, n_sym, sym, cfg.cp_len),
+                                   max_abs_err=err)
+
+    def symbols(shape, scale=0.8):
+        return torch.as_tensor(
+            ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+             * scale).astype(np.complex64), device=dev)
+
+    for shape, mod in (((S, n_sym, M), Modulation.ARB32OPT),
+                       ((S, n_sym, 1638), Modulation.QAM16),
+                       ((1, n_sym, 50), Modulation.QAM256)):
+        y = symbols(shape)
+        tab = constellation.table(mod)
+        res = compare(None, k34.demap(y, tab), y,
+                      constellation.hard_demap(y, tab), tab)
+        emit({"phase": "k4_vs_plain", "shape": list(shape),
+              "points": len(tab), **res})
+
+    G = ((rng.standard_normal((M, S, S)) + 1j * rng.standard_normal(
+        (M, S, S))) / np.sqrt(2) + 2.0 * np.eye(S)).astype(np.complex64)
+    W, gain = zf.invert(torch.as_tensor(G, device=dev))
+    tab = constellation.table(Modulation.ARB32OPT)
+    norm = np.float32(1.0 / np.sqrt(M))
+    x = symbols((S, n_sym, M), 1.0)
+    X = x * float(norm)
+    res3 = compare(*k34.eq_demap(X, W, gain, tab),
+                   *k34.eq_demap_reference(X, W, gain, tab), tab)
+    emit({"phase": "k3_vs_plain", "shape": [S, n_sym, M], **res3})
+    res2 = compare(*pf.payload_fused(x, W, gain, tab, norm),
+                   *pf.payload_fused_reference(x, W, gain, tab, norm), tab)
+    emit({"phase": "k2_vs_plain", "shape": [S, n_sym, M], **res2})
+    out["eq_demap"] = dict(args=(X, W, gain, tab),
+                           max_abs_err=res3["max_abs_err"])
+    out["payload_fused"] = dict(args=(x, W, gain, tab, norm),
+                                max_abs_err=res2["max_abs_err"])
+    return out
+
+
+def run_path(name: str, dec, planes, tx_data, cfg, expect: dict,
+             ser_zero: bool = True):
+    """Decode once with the counts at 0, check the payload kernels'
+    launches against ``expect`` (kernels not named: 0) and the SER."""
+    from rub_mimo_tpu_torch.pipeline import report
+
+    r, counts = drive(lambda: dec(*planes))
+    got = {k: counts[k] for k in PAYLOAD_KERNELS}
+    want = {k: expect.get(k, 0) for k in PAYLOAD_KERNELS}
+    require(got == want, f"{name}: launches {got}, expected {want}")
+    rep = report.score(r, tx_data, cfg)
+    require(rep.synced, f"{name}: did not sync")
+    if ser_zero:
+        require(all(s == 0.0 for s in rep.symbol_error_rate),
+                f"{name}: SER {rep.symbol_error_rate}")
+    emit({"phase": "path", "path": name, "capture": list(planes[0].shape),
+          "m_occupied": cfg.M_occupied, "launches": counts,
+          "ser_percent": rep.symbol_error_rate,
+          "evm_percent": rep.evm_percent})
+    return r, counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
                          "false; this check runs only on a CUDA device")
-    from rub_mimo_tpu_torch import ModemConfig, Modulation, tiny_config
+    from rub_mimo_tpu_torch import (CommMode, Detector, ModemConfig,
+                                    Modulation, tiny_config)
     from rub_mimo_tpu_torch.detect import zf
     from rub_mimo_tpu_torch.io import simulator
     from rub_mimo_tpu_torch.kernels import _build
+    from rub_mimo_tpu_torch.kernels import cp_strip as k7
+    from rub_mimo_tpu_torch.kernels import eq_demap as k34
     from rub_mimo_tpu_torch.kernels import payload_fused as pf
     from rub_mimo_tpu_torch.kernels import sc_metric as k6
     from rub_mimo_tpu_torch.kernels import sc_sync as k5
+    from rub_mimo_tpu_torch.models import presets
     from rub_mimo_tpu_torch.ofdm import constellation
     from rub_mimo_tpu_torch.pipeline import report, rx
 
@@ -299,10 +474,13 @@ def main() -> None:
     print(card, flush=True)
 
     # ---- phase 1: device + kernel builds (one nvcc per source, at once)
-    sources = list(launch_counts())
+    sources = sorted({src for _, _, src, _ in KERNELS.values()})
     t0 = time.perf_counter()
     libs = _build.build_all(sources)
     pf._kernel_fn()
+    pf._k2_fn()
+    k34._lib()
+    k7._kernel_fn()
     k5._kernel()
     k6._kernel_fn()
     build_s = time.perf_counter() - t0
@@ -348,6 +526,9 @@ def main() -> None:
     cap, tx_data, _ = simulator.simulate_capture(cfg, spec, device=dev)
     re, im = cap.real.contiguous(), cap.imag.contiguous()
     thr = cfg.plateau_threshold
+
+    # ---- phase 2b: K7, K4, K3, K2 vs plain at the operating point ----
+    cases = check_payload_kernels(dev, cfg)
 
     # ---- phase 3: K6 vs plain (seeded random, operating point) ----
     rng = np.random.default_rng(20)
@@ -491,6 +672,102 @@ def main() -> None:
     emit({"phase": "golden", "rx_data_equal": True, "G_rtol": 1e-4,
           "k1_launches": counts_golden["payload_fused_strip"]})
 
+    # ---- phase 9b: mimo_2x2_zf under the four payload impls ----
+    zcfg, zspec = presets.mimo_2x2_zf()
+    zcap, ztx, _ = simulator.simulate_capture(zcfg, zspec, device=dev)
+    zplanes = (zcap.real.contiguous(), zcap.imag.contiguous())
+    del zcap
+    ztab = constellation.table(zcfg.modulation)
+    impl_paths = {
+        "auto": {"payload_fused_strip": 1},
+        "fused": {"cp_strip": 1, "payload_fused": 1},
+        "eqdemap": {"cp_strip": 1, "eq_demap": 1},
+        "xla": {"cp_strip": 1, "demap": 1},
+    }
+    impl_dec, impl_counts, impl_res = {}, {}, {}
+    for impl, expect in impl_paths.items():
+        d = rx.make_decoder(zcfg, device=dev, input_format="planes",
+                            payload_impl=impl)
+        rz, impl_counts[impl] = run_path(f"mimo_2x2_zf/{impl}", d, zplanes,
+                                         ztx, zcfg, expect)
+        impl_dec[impl] = d
+        impl_res[impl] = rz
+        if impl != "auto":
+            emit({"phase": "impl_vs_auto", "impl": impl,
+                  **same_decode(rz, impl_res["auto"], ztab, impl)})
+
+    # K4 on the input the "xla" path's decode gave it: mismatches only at
+    # near-ties; its error is the largest distance between the kernel's
+    # and the plain version's decided points
+    k4_y = impl_res["xla"].rx_sig.contiguous()
+    k4_got = k34.demap(k4_y, ztab)
+    k4_ref = constellation.hard_demap(k4_y, ztab)
+    k4_cmp = compare(None, k4_got, k4_y, k4_ref, ztab)
+    points = torch.as_tensor(ztab.copy(), device=dev)
+    k4_cmp["max_abs_err"] = float(
+        (points[k4_got.long()] - points[k4_ref.long()]).abs().max())
+    emit({"phase": "k4_vs_plain", "case": "mimo_2x2_zf/xla rx_sig",
+          "shape": list(k4_y.shape), "points": len(ztab), **k4_cmp})
+
+    # ---- phase 9c: the generic tail's modes at full width ----
+    base = dict(pid_max=1000, bit_exact=False)
+    spec42 = simulator.ChannelSpec(snr_db=30.0, delay=5000, seed=42)
+    gb = ModemConfig(use_all_carriers=False, **base)
+    mode_paths = {
+        "siso_loopback": presets.siso_loopback(),
+        "guard_bands": (gb, spec42),
+        "guard_bands_normalized": (gb.replace(normalize_rx_scale=True),
+                                   spec42),
+        "alamouti_qpsk": (ModemConfig(mode=CommMode.ALAMOUTI,
+                                      modulation=Modulation.QPSK, **base),
+                          spec42),
+        "rx_diversity_qam16": (ModemConfig(mode=CommMode.RX_DIVERSITY,
+                                           modulation=Modulation.QAM16,
+                                           **base), spec42),
+        "sic_qam16": (ModemConfig(detector=Detector.SIC,
+                                  modulation=Modulation.QAM16, **base),
+                      simulator.ChannelSpec(snr_db=30.0, delay=5000,
+                                            seed=3)),
+        "ml_qpsk": (ModemConfig(detector=Detector.ML,
+                                modulation=Modulation.QPSK, **base), spec42),
+        "track_channel": (ModemConfig(track_channel=True,
+                                      track_block_frames=8, **base), spec42),
+        "track_phase": (ModemConfig(track_phase=True, **base), spec42),
+    }
+    mode_counts, mode_runs = {}, {}
+    for name, (mcfg, mspec) in mode_paths.items():
+        mcap, mtx, _ = simulator.simulate_capture(mcfg, mspec, device=dev)
+        mplanes = (mcap.real.contiguous(), mcap.imag.contiguous())
+        del mcap
+        n_demap = {"sic_qam16": mcfg.num_streams + 1,
+                   "track_channel": mcfg.pid_max // mcfg.track_block_frames
+                   + 1, "track_phase": 2}.get(name, 1)
+        d = rx.make_decoder(mcfg, device=dev, input_format="planes")
+        rm, mode_counts[name] = run_path(
+            name, d, mplanes, mtx, mcfg, {"cp_strip": 1, "demap": n_demap})
+        require((rm.Y is not None) == (mcfg.detector == Detector.ML),
+                f"{name}: Y kept {rm.Y is not None}")
+        mode_runs[name] = (d, mplanes)
+
+    # ---- phase 9d: wifi_like at its own width, card vs CPU ----
+    wcfg, wspec = presets.wifi_like()
+    wcap, wtx, _ = simulator.simulate_capture(wcfg, wspec, device=dev)
+    wplanes = (wcap.real.contiguous(), wcap.imag.contiguous())
+    wdec = rx.make_decoder(wcfg, device=dev, input_format="planes")
+    rw, wcounts = run_path("wifi_like", wdec, wplanes, wtx, wcfg,
+                           {"cp_strip": 1, "demap": 1}, ser_zero=False)
+    rw_cpu = rx.make_decoder(wcfg, device="cpu")(wcap.cpu())
+    rw_card = rw._replace(**{f: getattr(rw, f).cpu() for f in INT_FIELDS})
+    wcmp = same_decode(rw_card, rw_cpu, constellation.table(wcfg.modulation),
+                       "wifi_like card vs CPU")
+    emit({"phase": "wifi_like_card_vs_cpu", "capture": list(wcap.shape),
+          "m_occupied": wcfg.M_occupied,
+          "ser_percent_card": report.score(rw, wtx, wcfg).symbol_error_rate,
+          "ser_percent_cpu": report.score(rw_cpu, wtx,
+                                          wcfg).symbol_error_rate,
+          "int_fields_equal": True, **wcmp})
+    del wcap
+
     # ---- phase 10: times (CUDA events, medians over TIMING_ITERS) ----
     # the two sync paths in turns: default, pallas, pallas, default
     t_dec = cuda_ms(lambda: dec(re, im))
@@ -498,22 +775,61 @@ def main() -> None:
     t_pal2 = cuda_ms(lambda: dec_pallas(re, im))
     t_dec2 = cuda_ms(lambda: dec(re, im))
     t_cfo = cuda_ms(lambda: dec_cfo(re_c, im_c))
-    t_k1 = cuda_ms(lambda: pf.payload_fused_strip(
-        p_re, p_im, r.W, r.normalize_gain, tab, norm, **kw))
-    t_plain = cuda_ms(lambda: pf.payload_tail_reference(
-        p_re, p_im, r.W, r.normalize_gain, tab, norm, **kw))
+    t_impl = {impl: cuda_ms(lambda d=d: d(*zplanes), iters=MODE_ITERS)
+              for impl, d in impl_dec.items()}
+    t_mode = {name: cuda_ms(lambda d=d, p=p: d(*p), iters=MODE_ITERS)
+              for name, (d, p) in mode_runs.items()}
+    t_wifi = cuda_ms(lambda: wdec(*wplanes), iters=MODE_ITERS)
+    # each kernel, its plain version and, where there is one, the one
+    # PyTorch call computing the same function, on the main path's shapes
     sync_args = (cap, cfg.M, cfg.cp_len, thr)
-    t_k5 = cuda_ms(lambda: k5.sc_sync_fused(*sync_args))
-    t_k5_plain = cuda_ms(lambda: k5.sc_sync_reference(*sync_args))
-    t_k6 = cuda_ms(lambda: k6.sc_metric_fused(cap, cfg.M))
-    t_k6_plain = cuda_ms(lambda: k6.sc_metric_reference(cap, cfg.M))
+    k4_args = (k4_y, ztab)  # the xla path's K4 input
+    k7p, _, k7sym, k7cp = k7_args = cases["cp_strip"]["args"]
+    calls = {
+        "payload_fused_strip": (
+            lambda: pf.payload_fused_strip(p_re, p_im, r.W, r.normalize_gain,
+                                           tab, norm, **kw),
+            lambda: pf.payload_tail_reference(
+                p_re, p_im, r.W, r.normalize_gain, tab, norm, **kw), None),
+        "payload_fused": (
+            lambda: pf.payload_fused(*cases["payload_fused"]["args"]),
+            lambda: pf.payload_fused_reference(
+                *cases["payload_fused"]["args"]), None),
+        "eq_demap": (
+            lambda: k34.eq_demap(*cases["eq_demap"]["args"]),
+            lambda: k34.eq_demap_reference(*cases["eq_demap"]["args"]),
+            None),
+        "demap": (lambda: k34.demap(*k4_args),
+                  lambda: constellation.hard_demap(*k4_args), None),
+        "sc_sync": (lambda: k5.sc_sync_fused(*sync_args),
+                    lambda: k5.sc_sync_reference(*sync_args), None),
+        "sc_metric": (lambda: k6.sc_metric_fused(cap, cfg.M),
+                      lambda: k6.sc_metric_reference(cap, cfg.M), None),
+        "cp_strip": (
+            lambda: k7.cp_strip(*k7_args),
+            lambda: k7.cp_strip_reference(*k7_args),
+            lambda: k7p.view(S, n_sym, k7sym)[:, :, k7cp:].contiguous()),
+    }
+    # CUDA events around single calls: the kernel plus the host's launch
+    # work, which is the larger part for the short kernels
+    t_calls = {name: tuple(None if f is None else cuda_ms(f) for f in fns)
+               for name, fns in calls.items()}
+    t_k1, t_plain = t_calls["payload_fused_strip"][:2]
+    t_k5, t_k5_plain = t_calls["sc_sync"][:2]
+    t_k6, t_k6_plain = t_calls["sc_metric"][:2]
     emit({"phase": "times", "card": card, "iters": TIMING_ITERS,
+          "mode_iters": MODE_ITERS,
           "decode": t_dec, "decode_sync_pallas": t_pal,
           "decode_sync_pallas_again": t_pal2, "decode_again": t_dec2,
           "decode_cfo_config": t_cfo,
+          "decode_mimo_2x2_zf": t_impl, "decode_mode": t_mode,
+          "decode_wifi_like": t_wifi,
           "k1": t_k1, "plain_tail": t_plain,
           "k5": t_k5, "plain_k5": t_k5_plain,
           "k6": t_k6, "plain_k6": t_k6_plain,
+          **{name: {"kernel": k, "plain": p, "library": lib}
+             for name, (k, p, lib) in t_calls.items()
+             if name in ("cp_strip", "demap", "eq_demap", "payload_fused")},
           "decode_samples_per_s": S * T / (t_dec["median_ms"] * 1e-3)})
 
     # ---- phase 11: where the decode's time goes ----
@@ -522,6 +838,7 @@ def main() -> None:
     stage_ms = stage_times(cfg, re, im, int(r.sync_index))
     busy = device_busy(lambda: dec(re, im))
     busy_pal = device_busy(lambda: dec_pallas(re, im))
+    busy_xla = device_busy(lambda: impl_dec["xla"](*zplanes))
     t_after = cuda_ms(lambda: dec(re, im))
     emit({"phase": "stages", "card": card, "iters": TIMING_ITERS,
           "stage_ms": stage_ms,
@@ -540,36 +857,121 @@ def main() -> None:
                   None if busy_pal["busy_ms"] is None else
                   1.0 - busy_pal["busy_ms"] / t_pal["median_ms"]),
               "device_kernels_per_decode": busy_pal["kernels"],
-              "longest_kernels_us": busy_pal["top_kernels_us"]}})
+              "longest_kernels_us": busy_pal["top_kernels_us"]},
+          "mimo_2x2_zf_xla": {
+              "device_busy_ms_per_decode": busy_xla["busy_ms"],
+              "device_idle_share": (
+                  None if busy_xla["busy_ms"] is None else
+                  1.0 - busy_xla["busy_ms"]
+                  / t_impl["xla"]["median_ms"]),
+              "device_kernels_per_decode": busy_xla["kernels"],
+              "longest_kernels_us": busy_xla["top_kernels_us"]}})
 
+    # ---- phase 12: each kernel's time on the card (torch.profiler) ----
+    # the card's busy time per call, kernel work only; CUDA events (which
+    # add the host's launch work) stand in where the profiler records no
+    # device activity, and "timer" says which one each time is
+    dev_ms, timer = {}, {}
+    for name, fns in calls.items():
+        busy = [None if f is None else device_busy(f, n=10)["busy_ms"]
+                for f in fns]
+        timer[name] = ["profiler" if b is not None else
+                       None if f is None else "cuda_events"
+                       for f, b in zip(fns, busy)]
+        dev_ms[name] = tuple(
+            b if b is not None else None if ev is None else ev["median_ms"]
+            for b, ev in zip(busy, t_calls[name]))
+    emit({"phase": "kernel_device_ms", "card": card, "profiled_calls": 10,
+          **{name: {"kernel": k, "plain": p, "library": lib,
+                    "timer": timer[name]}
+             for name, (k, p, lib) in dev_ms.items()}})
+
+    # ---- phase 12b: each payload_impl's whole tail on the card ----
+    # from the planes' payload slice to the decisions, on the operating
+    # point's capture and weights, as decode runs it under each impl
+    def strip():
+        return rx.strip_payload(None, (re, im), cstart, cfg)
+
+    W_op, g_op = r.W, r.normalize_gain
+    tails = {
+        "auto": lambda: pf.payload_fused_strip(
+            *(rx.extract_payload(p, cstart, n_sym * sym) for p in (re, im)),
+            W_op, g_op, tab, norm, **kw),
+        "fused": lambda: pf.payload_fused(strip(), W_op, g_op, tab, norm),
+        "eqdemap": lambda: k34.eq_demap(
+            torch.fft.fft(strip(), dim=-1) * float(norm), W_op, g_op, tab),
+        "xla": lambda: rx.payload_tail(strip(), r.G, W_op, g_op, cfg),
+    }
+    emit({"phase": "tail_device_ms", "card": card, "profiled_calls": 10,
+          **{impl: {"device_busy_ms": device_busy(f, n=10)["busy_ms"],
+                    "event_ms": cuda_ms(f)["median_ms"]}
+             for impl, f in tails.items()}})
+
+    # ---- the kernels line: bounds from this run's inputs ----
+    K_op = len(tab)
+    x2, W2, g2, _, _ = cases["payload_fused"]["args"]
+    X3, W3, g3, _ = cases["eq_demap"]["args"]
+    out_sig_data = S * n_sym * M * (8 + 4)
+    # K1 and K7 read only the M kept samples of each symbol: the CP's
+    # whole 32-byte sectors never leave memory
+    k1_read = 2 * S * n_sym * M * p_re.element_size()
+    k7_read = S * n_sym * (k7sym - k7cp) * k7p.element_size()
+    bounds = {
+        "payload_fused_strip": bound(
+            k1_read + nbytes(r.W, r.normalize_gain) + out_sig_data,
+            tail_flops(S, n_sym, M, K_op, fft=True)),
+        "payload_fused": bound(nbytes(x2, W2, g2) + out_sig_data,
+                               tail_flops(S, n_sym, M, K_op, fft=True)),
+        "eq_demap": bound(nbytes(X3, W3, g3) + out_sig_data,
+                          tail_flops(S, n_sym, M, K_op, fft=False)),
+        "demap": bound(k4_y.numel() * (8 + 4),
+                       4.0 * len(ztab) * k4_y.numel()),
+        # the S&C metric: ~18 operations per sample and stream
+        "sc_sync": bound(nbytes(cap), 18.0 * cap.numel()),
+        "sc_metric": bound(nbytes(cap) + 4 * cap.numel(),
+                           18.0 * cap.numel()),
+        "cp_strip": bound(2 * k7_read, 0.0),
+    }
+    launched = {
+        "payload_fused_strip": launches,
+        "payload_fused": impl_counts["fused"]["payload_fused"],
+        "eq_demap": impl_counts["eqdemap"]["eq_demap"],
+        "demap": impl_counts["xla"]["demap"],
+        "sc_sync": counts_pallas["sc_sync"],
+        "sc_metric": counts_debug["sc_metric"],
+        "cp_strip": impl_counts["fused"]["cp_strip"],
+    }
+    errors = {
+        "payload_fused_strip": main_cmp["max_abs_err"],
+        "payload_fused": cases["payload_fused"]["max_abs_err"],
+        "eq_demap": cases["eq_demap"]["max_abs_err"],
+        "demap": k4_cmp["max_abs_err"],
+        "sc_sync": k5_cmp["corr_abs_err"],
+        "sc_metric": k6_cmp["max_abs_err"],
+        "cp_strip": cases["cp_strip"]["max_abs_err"],
+    }
+    # K4's integer decisions: its mismatches and their largest top-2 margin
+    extra = {"demap": {"mismatches": k4_cmp["mismatches"],
+                       "max_mismatch_margin": max(
+                           k4_cmp["mismatch_margins"], default=0.0)}}
+    rows = {name: (launched[name], errors[name], *dev_ms[name])
+            for name in KERNELS}
+    for name, row in rows.items():
+        require(row[0] >= 1, f"{name} was not launched on its path")
     emit({"kernels": [{
-        "name": "payload_fused_strip",
+        "name": name,
         "route": "cuda",
-        "source": "rub_mimo_tpu_torch/kernels/csrc/payload_fused_strip.cu",
-        "replaces": "rub_mimo_tpu/kernels/payload_fused.py:548",
-        "launches": launches,
-        "max_abs_err": main_cmp["max_abs_err"],
-        "ms": t_k1["median_ms"],
-        "plain_ms": t_plain["median_ms"],
-    }, {
-        "name": "sc_sync",
-        "route": "cuda",
-        "source": "rub_mimo_tpu_torch/kernels/csrc/sc_sync.cu",
-        "replaces": "rub_mimo_tpu/kernels/sc_sync.py:168",
-        "launches": counts_pallas["sc_sync"],
-        "max_abs_err": k5_cmp["corr_abs_err"],
-        "ms": t_k5["median_ms"],
-        "plain_ms": t_k5_plain["median_ms"],
-    }, {
-        "name": "sc_metric",
-        "route": "cuda",
-        "source": "rub_mimo_tpu_torch/kernels/csrc/sc_metric.cu",
-        "replaces": "rub_mimo_tpu/kernels/sc_metric.py:85",
-        "launches": counts_debug["sc_metric"],
-        "max_abs_err": k6_cmp["max_abs_err"],
-        "ms": t_k6["median_ms"],
-        "plain_ms": t_k6_plain["median_ms"],
-    }]})
+        "source": f"rub_mimo_tpu_torch/kernels/csrc/{KERNELS[name][2]}.cu",
+        "replaces": KERNELS[name][3],
+        "launches": n_launch,
+        "max_abs_err": err,
+        "ms": t_k,
+        "plain_ms": t_p,
+        "bound_ms": bounds[name]["bound_ms"],
+        "bound_by": bounds[name]["bound_by"],
+        "library_ms": t_lib,
+        **extra.get(name, {}),
+    } for name, (n_launch, err, t_k, t_p, t_lib) in rows.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

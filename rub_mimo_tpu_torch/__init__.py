@@ -2,19 +2,23 @@
 
 The JAX package (rub_mimo_tpu) stays the reference; this package grows
 beside it, module for module, and is held against it by the parity tests
-(tests/test_torch_*.py).  It imports torch and never jax: the only module
-of the JAX package it uses is the stdlib-only ``rub_mimo_tpu.config``,
-re-exported here so callers need nothing else.
+(tests/test_torch_*.py).  It imports torch and never jax, and nothing of
+the JAX package: its configuration is its own copy (``config``), and
+``convert.config_from_jax`` carries a JAX config over.
 
-Ported so far: the 2x2 RX_ZF decode with its acquisition options
-(sync impls coarse / xla / pallas, the S0 fallback, CFO correction,
-channel smoothing, the measured-noise MMSE, the debug outputs), the TX
-side and channel simulator that build its captures, and three
-hand-written CUDA kernels (kernels/csrc/): the payload tail, the
+Ported so far: the decode (rx.decode / rx.make_decoder) with its
+acquisition options (sync impls coarse / xla / pallas, the S0 fallback,
+CFO correction, channel smoothing, the measured-noise MMSE, the debug
+outputs) and its payload tails (guard bands, the SISO, RX_DIVERSITY,
+ALAMOUTI and beamforming modes, the ZF, MMSE, SIC and ML detectors,
+channel and phase tracking), the TX side and channel simulator that
+build its captures, the presets (models.presets), and seven hand-written
+CUDA kernels (kernels/csrc/): the strip-fused payload tail, the fused
+payload tail, the CP strip, equalize + demap, the hard demap, the
 one-pass sync and the S&C metric.
 """
 
-from rub_mimo_tpu.config import (
+from rub_mimo_tpu_torch.config import (
     CommMode,
     Detector,
     ModemConfig,

@@ -1,4 +1,8 @@
-"""Carry the JAX package's state into the port's tensors.
+"""Carry the JAX package's config and state into the port.
+
+``config_from_jax`` turns a JAX package ModemConfig into the port's own
+(the port's entry points refuse the JAX one: its enums are other
+classes).
 
 The modem has no learned weights; what the two packages share is their
 per-config constants and the per-capture channel state a decode derives.
@@ -14,6 +18,15 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from rub_mimo_tpu_torch.config import ModemConfig
+
+
+def config_from_jax(cfg) -> ModemConfig:
+    """The port's ModemConfig equal to a JAX package config: read through
+    its JSON form (duck-typed; nothing of the JAX package is imported)."""
+    return ModemConfig.from_json(cfg.to_json())
+
 
 # key -> (numpy kind, torch dtype, rank)
 STATE_KEYS = {

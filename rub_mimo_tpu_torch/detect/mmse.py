@@ -26,4 +26,5 @@ def mmse_weights(G: torch.Tensor,
     d = torch.einsum("...ij,...ji->...i", W0, G)
     W = W0 / d[..., :, None]
     gain = torch.ones(G.shape[:-2], dtype=torch.float32, device=G.device)
-    return W.to(torch.complex64), gain
+    # contiguous: the CUDA payload kernels take W as [..., N, N] rows
+    return W.to(torch.complex64).contiguous(), gain

@@ -42,7 +42,9 @@ def invert(G: torch.Tensor,
         gain = torch.ones(G.shape[:-2], dtype=torch.float32, device=G.device)
     else:
         gain = 1.0 / (det.real ** 2 + det.imag ** 2)
-    return W.to(torch.complex64), gain.to(torch.float32)
+    # contiguous: the CUDA payload kernels take W as [..., N, N] rows
+    # (torch.linalg results may carry column-major strides)
+    return W.to(torch.complex64).contiguous(), gain.to(torch.float32)
 
 
 def equalize(Y: torch.Tensor, W: torch.Tensor,

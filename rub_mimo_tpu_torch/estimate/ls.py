@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from rub_mimo_tpu.config import ModemConfig
+from rub_mimo_tpu_torch.config import ModemConfig
 from rub_mimo_tpu_torch.ofdm import preamble, sctype
 from rub_mimo_tpu_torch.utils.gather import gather_windows
 

@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from rub_mimo_tpu.config import ModemConfig
+from rub_mimo_tpu_torch.config import ModemConfig
 
 
 @functools.lru_cache(maxsize=8)

@@ -18,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rub_mimo_tpu.config import ModemConfig
+from rub_mimo_tpu_torch.config import ModemConfig, check_config
 from rub_mimo_tpu_torch.ofdm import framegen
 
 
@@ -100,6 +100,7 @@ def simulate_capture(cfg: ModemConfig, spec: ChannelSpec,
     tx_data: [num_streams, pid_max * M_occupied] int32 ground truth (numpy)
     h:       [rx, tx, taps] channel realization (numpy)
     """
+    check_config(cfg, "simulator.simulate_capture")
     if tx_data is None:
         tx_data = framegen.generate_payload_symbols(cfg, seed=payload_seed)
     h = draw_channel(spec, cfg.num_streams, cfg.num_streams)

@@ -9,9 +9,10 @@
 // order with exactly n_sym frames (no packed order, no pad frames).
 //
 // What bounds it: memory.  At the reference operating point (M=2048,
-// CP=152, S=2, 1000 frames) it reads ~37 MB of f32 payload planes and
-// writes ~49 MB (int32 decisions + complex64 symbols): ~86 MB, a floor of
-// tens of microseconds at the card's 3.35 TB/s.  The FFT is ~0.2 GFLOP,
+// CP=152, S=2, 1000 frames) it reads the kept 33 MB of the f32 payload
+// planes (the CP's 608 bytes per plane are whole 32-byte sectors, never
+// fetched) and writes ~49 MB (int32 decisions + complex64 symbols):
+// ~82 MB, a floor of ~24.5 us at the card's 3.35 TB/s.  The FFT is ~0.2 GFLOP,
 // negligible.  So the design keeps every intermediate on chip: each block
 // reads its frame's samples once (coalesced, CP skipped by the load
 // offset), transforms them in shared memory (S * M * 8 bytes, 32 KB at the
@@ -29,11 +30,13 @@
 //      the first maximum wins;
 //   4. write rx_data[o][k][sc] (int32) and, when rx_sig is non-null,
 //      rx_sig[o][k][sc] (complex64).
+// Steps 2-4 are payload_common.cuh's fft_eq_demap_frame, shared with K2.
 //
 // Plain C interface for ctypes; the launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "payload_common.cuh"
 
 namespace {
 
@@ -60,78 +63,23 @@ payload_fused_strip_kernel(const float* __restrict__ p_re,
   __shared__ float cb[kMaxPoints];
 
   const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int q = tid; q < n_points; q += kThreads) {
-    cr[q] = points[q];
-    ci[q] = points[n_points + q];
-    cb[q] = points[2 * n_points + q];
-  }
+  payload::load_points(points, n_points, cr, ci, cb);
 
   // 1. CP strip + bit-reversed load
   const long long frame_off = (long long)k * sym + cp;
-  for (int i = tid; i < S * M; i += kThreads) {
+  for (int i = threadIdx.x; i < S * M; i += kThreads) {
     const int s = i >> log2M;
     const int n = i & (M - 1);
     const long long g = (long long)s * plane_len + frame_off + n;
-    const int r = (int)(__brev((unsigned)n) >> (32 - log2M));
-    buf[s * M + r] = make_float2(p_re[g], p_im[g]);
+    buf[s * M + payload::bit_reverse(n, log2M)] =
+        make_float2(p_re[g], p_im[g]);
   }
   __syncthreads();
 
-  // 2. radix-2 DIT stages, butterfly half-size h = 2^lh
-  const int half = M >> 1;
-  for (int lh = 0; lh < log2M; ++lh) {
-    const int h = 1 << lh;
-    for (int b = tid; b < S * half; b += kThreads) {
-      const int s = b >> (log2M - 1);
-      const int j = b & (half - 1);
-      const int pos = j & (h - 1);
-      const int i0 = ((j >> lh) << (lh + 1)) + pos;
-      const int i1 = i0 + h;
-      const float2 w = twiddle[pos << (log2M - 1 - lh)];
-      float2* x = buf + s * M;
-      const float2 a = x[i0];
-      const float2 c = x[i1];
-      const float2 t = make_float2(w.x * c.x - w.y * c.y,
-                                   w.x * c.y + w.y * c.x);
-      x[i0] = make_float2(a.x + t.x, a.y + t.y);
-      x[i1] = make_float2(a.x - t.x, a.y - t.y);
-    }
-    __syncthreads();
-  }
-
-  // 3-4. equalize + demap + store
-  for (int sc = tid; sc < M; sc += kThreads) {
-    float2 X[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) X[j] = buf[j * M + sc];
-    const float g = gain[sc] * dft_norm;
-#pragma unroll
-    for (int o = 0; o < S; ++o) {
-      float ar = 0.f;
-      float ai = 0.f;
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        const float2 w = W[(sc * S + o) * S + j];
-        ar += w.x * X[j].x - w.y * X[j].y;
-        ai += w.x * X[j].y + w.y * X[j].x;
-      }
-      ar *= g;
-      ai *= g;
-      float best = -CUDART_INF_F;
-      int idx = 0;
-      for (int q = 0; q < n_points; ++q) {
-        const float score = ar * cr[q] + ai * ci[q] - cb[q];
-        if (score > best) {
-          best = score;
-          idx = q;
-        }
-      }
-      const long long o_off = ((long long)o * n_sym + k) * M + sc;
-      rx_data[o_off] = idx;
-      if (rx_sig != nullptr) rx_sig[o_off] = make_float2(ar, ai);
-    }
-  }
+  // 2-4. FFT, equalize + demap + store
+  payload::fft_eq_demap_frame<S>(buf, M, log2M, twiddle, W, gain, dft_norm,
+                                 cr, ci, cb, n_points, k, n_sym, rx_data,
+                                 rx_sig);
 }
 
 template <int S>

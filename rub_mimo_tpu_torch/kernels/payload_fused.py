@@ -1,13 +1,16 @@
-"""Strip-fused payload tail: CP strip + FFT + ZF/MMSE equalize + hard demap.
+"""Fused payload tails: FFT + ZF/MMSE equalize + hard demap, with (K1) or
+without (K2) the CP strip.
 
-Port of rub_mimo_tpu/kernels/payload_fused.py::payload_fused_strip.  On
-CUDA tensors ``payload_fused_strip`` launches the hand-written Hopper
-kernel csrc/payload_fused_strip.cu (one block per frame, radix-2 FFT in
-shared memory, see the source note); on CPU tensors it runs
-``payload_tail_reference``, the plain PyTorch version of the same math
-that the tests and chip_smoke.py hold the kernel against.  There is no
-fallback: a CUDA call that the kernel cannot take, or whose build or
-launch fails, raises.
+Ports of rub_mimo_tpu/kernels/payload_fused.py::payload_fused_strip (K1)
+and ::payload_fused (K2).  On CUDA tensors ``payload_fused_strip`` and
+``payload_fused`` launch the hand-written Hopper kernels
+csrc/payload_fused_strip.cu and csrc/payload_fused.cu (one block per
+frame, radix-2 FFT in shared memory, the block shared through
+csrc/payload_common.cuh, see the source notes); on CPU tensors they run
+``payload_tail_reference`` and ``payload_fused_reference``, the plain
+PyTorch versions of the same math that the tests and chip_smoke.py hold
+the kernels against.  There is no fallback: a CUDA call that a kernel
+cannot take, or whose build or launch fails, raises.
 
 Outputs are [S, n_sym, M] in natural subcarrier order with exactly n_sym
 frames; the JAX kernel's packed order and pad frames were TPU tile
@@ -29,11 +32,13 @@ MAX_POINTS = 64
 
 
 def strip_supported(M: int, n_streams: int, arity: int) -> bool:
-    """Geometry gate of the CUDA kernel: M a power of two in [64, 4096],
-    1..4 streams, at most 64 points.  The kernel equalizes and demaps
-    every subcarrier, so the caller's allocation must be all-occupied."""
+    """Geometry gate of the K1 and K2 kernels: M a power of two in
+    [64, 4096], 1..4 streams, at most 64 points.  The kernels equalize and
+    demap every subcarrier, so the caller's allocation must be
+    all-occupied."""
     return (64 <= M <= 4096 and M & (M - 1) == 0
             and 1 <= n_streams <= 4 and arity <= MAX_POINTS)
+
 
 
 def payload_tail_reference(p_re: torch.Tensor, p_im: torch.Tensor,
@@ -71,6 +76,12 @@ def _points(table_bytes: bytes, device: torch.device) -> torch.Tensor:
     to device copy per call would synchronize the stream)."""
     t = np.frombuffer(table_bytes, dtype=np.complex64)
     return torch.as_tensor(constellation.demap_planes(t), device=device)
+
+
+def device_points(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The demap constants of ``table`` as the kernels take them: [3, K]
+    float32 rows (Re c, Im c, |c|^2 / 2) on ``device``."""
+    return _points(np.asarray(table, np.complex64).tobytes(), device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -135,7 +146,7 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
     S = p_re.shape[0]
     M = symbol_len - cp_len
     fn = _kernel_fn()
-    points = _points(np.asarray(table, np.complex64).tobytes(), dev)
+    points = device_points(table, dev)
     twiddle = _twiddles(M, dev)
     rx_data = torch.empty((S, n_sym, M), dtype=torch.int32, device=dev)
     rx_sig = (torch.empty((S, n_sym, M), dtype=torch.complex64, device=dev)
@@ -156,3 +167,92 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
 
 
 payload_fused_strip.launches = 0
+
+
+def payload_fused_reference(x_t: torch.Tensor, W: torch.Tensor,
+                            gain: torch.Tensor, table: np.ndarray,
+                            dft_norm: float, emit_sig: bool = True):
+    """Plain PyTorch version of ``payload_fused``: torch.fft.fft, then
+    detect.zf.equalize with the gain scaled by dft_norm, then the hard
+    demap over ``table``."""
+    X = torch.fft.fft(x_t, dim=-1)
+    g = gain * float(dft_norm)
+    eq = zf.equalize(X.transpose(0, 1), W, g).transpose(0, 1)
+    rx_data = constellation.hard_demap(eq, table)
+    return (eq.contiguous() if emit_sig else None), rx_data
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_fn():
+    from rub_mimo_tpu_torch.kernels import _build
+
+    fn = _build.load("payload_fused").payload_fused
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, P, P, P, I, P, ctypes.c_float, I, I, I, I, P, P, P]
+    fn.restype = I
+    return fn
+
+
+def payload_fused(x_t: torch.Tensor, W: torch.Tensor, gain: torch.Tensor,
+                  table: np.ndarray, dft_norm: float, emit_sig: bool = True):
+    """Payload tail over CP-stripped symbols (K2).
+
+    x_t: [S, n_sym, M] complex64 (what kernels.cp_strip gives); W:
+    [M, out, rx] complex64; gain: [M] float32; table: constellation
+    points (numpy); dft_norm: 1/sqrt(M_occupied), folded into the gain.
+
+    Returns (rx_sig [S, n_sym, M] complex64 | None, rx_data [S, n_sym, M]
+    int32), natural order, with
+    eq[o, k, sc] = (sum_j W[sc, o, j] X[j, k, sc]) * (gain[sc] * dft_norm),
+    X = DFT_M(x_t), demapped nearest-neighbour."""
+    devices = {t.device for t in (x_t, W, gain)}
+    if len(devices) != 1:
+        raise ValueError("payload_fused: inputs on several devices "
+                         f"{sorted(map(str, devices))}")
+    if x_t.device.type == "cpu":
+        return payload_fused_reference(x_t, W, gain, table, dft_norm,
+                                       emit_sig)
+    if x_t.device.type != "cuda":
+        raise ValueError(f"payload_fused: no kernel for {x_t.device}")
+    if x_t.dim() != 3:
+        raise ValueError("payload_fused: x_t must be [S, n_sym, M], got "
+                         f"{tuple(x_t.shape)}")
+    S, n_sym, M = x_t.shape
+    for name, t, dt, shape in (
+        ("x_t", x_t, torch.complex64, (S, n_sym, M)),
+        ("W", W, torch.complex64, (M, S, S)),
+        ("gain", gain, torch.float32, (M,)),
+    ):
+        if t.dtype != dt:
+            raise ValueError(f"payload_fused: {name} must be {dt}, got "
+                             f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"payload_fused: {name} must have shape "
+                             f"{shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"payload_fused: {name} must be contiguous")
+    if n_sym < 1 or not strip_supported(M, S, len(table)):
+        raise ValueError(f"payload_fused kernel does not take M={M}, S={S}, "
+                         f"n_sym={n_sym}, {len(table)} points "
+                         "(see strip_supported)")
+    dev = x_t.device
+    points = device_points(table, dev)
+    twiddle = _twiddles(M, dev)
+    rx_data = torch.empty((S, n_sym, M), dtype=torch.int32, device=dev)
+    rx_sig = (torch.empty((S, n_sym, M), dtype=torch.complex64, device=dev)
+              if emit_sig else None)
+    with torch.cuda.device(dev):
+        err = _k2_fn()(x_t.data_ptr(), W.data_ptr(), gain.data_ptr(),
+                       points.data_ptr(), points.shape[1], twiddle.data_ptr(),
+                       float(dft_norm), S, M, M.bit_length() - 1, n_sym,
+                       rx_data.data_ptr(),
+                       None if rx_sig is None else rx_sig.data_ptr(),
+                       torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"payload_fused kernel launch failed: CUDA error {err}")
+    payload_fused.launches += 1
+    return rx_sig, rx_data
+
+
+payload_fused.launches = 0

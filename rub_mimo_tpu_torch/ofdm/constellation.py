@@ -7,7 +7,9 @@ device the symbols live on.  Soft (LLR) demapping is not ported yet.
 
 Demapping is nearest neighbour over the table, written as the score
 argmax_k Re(y) Re(c_k) + Im(y) Im(c_k) - |c_k|^2 / 2 with the first
-maximum winning — the same rule the CUDA payload kernel applies.
+maximum winning — the same rule the CUDA payload kernels apply.
+``hard_demap`` is the plain PyTorch version; ``demodulate`` sends CUDA
+tensors to the hard-demap kernel (kernels.eq_demap.demap, K4).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import math
 import numpy as np
 import torch
 
-from rub_mimo_tpu.config import Modulation
+from rub_mimo_tpu_torch.config import Modulation
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -154,5 +156,12 @@ def hard_demap(y: torch.Tensor, points: np.ndarray) -> torch.Tensor:
 
 
 def demodulate(y: torch.Tensor, modulation: Modulation) -> torch.Tensor:
-    """Hard-decision demapping for the modulation's table."""
+    """Hard-decision demapping for the modulation's table: on a CUDA
+    tensor the K4 kernel (kernels.eq_demap.demap), else hard_demap."""
+    if y.device.type == "cuda":
+        # imported here: the kernels import this module
+        from rub_mimo_tpu_torch.kernels import eq_demap
+
+        return eq_demap.demap(y.to(torch.complex64).contiguous(),
+                              table(modulation))
     return hard_demap(y, table(modulation))

@@ -1,8 +1,9 @@
 """TX frame generation: sync words + batched OFDM payload framing.
 
-Port of rub_mimo_tpu/ofdm/framegen.py for the RX_ZF path (every stream
-carries its own payload, no precoder).  Alamouti, SISO/diversity and
-precoded TX are not ported yet.
+Port of rub_mimo_tpu/ofdm/framegen.py: every mode's TX, with one payload
+per stream (RX_ZF and the beamforming modes), only siso_tx transmitting
+(SISO, RX_DIVERSITY), or one stream space-time coded onto both antennas
+(ALAMOUTI).  Precoded TX is not ported yet.
 
 Conventions (matching the reference, framing.cc:79-266):
   - IFFT is unnormalized FFTW_BACKWARD (= M * ifft), scaled by
@@ -17,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rub_mimo_tpu.config import CommMode, ModemConfig
+from rub_mimo_tpu_torch.config import CommMode, ModemConfig, check_config
+from rub_mimo_tpu_torch.detect import alamouti
 from rub_mimo_tpu_torch.ofdm import constellation, preamble, sctype
 
 
@@ -83,20 +85,34 @@ def generate_payload_symbols(cfg: ModemConfig, seed: int = 0) -> np.ndarray:
     return data
 
 
-def transmit_frame(cfg: ModemConfig, tx_data, *, device) -> torch.Tensor:
+def transmit_frame(cfg: ModemConfig, tx_data, *, device,
+                   precoder=None) -> torch.Tensor:
     """Full TX baseband signal: sync words then pid_max payload symbols,
     all scaled by baseband_gain (main.cc:1027-1112).
 
     tx_data: [num_streams, pid_max * M_occupied] integer symbols (numpy
-    or tensor); returns [num_streams, total_len] complex64 on ``device``."""
-    if cfg.mode != CommMode.RX_ZF:
+    or tensor); returns [num_streams, total_len] complex64 on ``device``.
+    ALAMOUTI codes stream 0's symbols onto both antennas in pairs
+    (detect.alamouti.encode_pairs); SISO and RX_DIVERSITY transmit on
+    siso_tx only, the other streams zero (main.cc:1213-1219).  A precoder
+    (closed-loop TX beamforming) is not ported yet and raises."""
+    check_config(cfg, "framegen.transmit_frame")
+    if precoder is not None:
         raise NotImplementedError(
-            f"transmit_frame: mode {cfg.mode.value} is not ported yet")
+            "transmit_frame: precoded TX is not ported yet")
     tx_data = torch.as_tensor(tx_data, device=device)
     m_occ = sctype.m_occupied(cfg)
     sig = constellation.modulate(tx_data, cfg.modulation)
-    payload_t = assemble_payload(
-        cfg, sig.reshape(cfg.num_streams, cfg.pid_max, m_occ))
+    if cfg.mode == CommMode.ALAMOUTI:
+        sig = alamouti.encode_pairs(sig[0].reshape(cfg.pid_max, m_occ))
+    else:
+        if cfg.mode in (CommMode.SISO, CommMode.RX_DIVERSITY):
+            mask = torch.zeros((cfg.num_streams, 1), dtype=sig.dtype,
+                               device=sig.device)
+            mask[cfg.siso_tx, 0] = 1.0
+            sig = sig * mask
+        sig = sig.reshape(cfg.num_streams, cfg.pid_max, m_occ)
+    payload_t = assemble_payload(cfg, sig)
     sync = torch.as_tensor(write_sync_words(cfg), device=device)
     out = torch.cat([sync, payload_t], dim=-1)
     return (out * cfg.baseband_gain).to(torch.complex64)

@@ -20,7 +20,7 @@ import functools
 
 import numpy as np
 
-from rub_mimo_tpu.config import ModemConfig
+from rub_mimo_tpu_torch.config import ModemConfig
 from rub_mimo_tpu_torch.ofdm import sctype
 from rub_mimo_tpu_torch.ofdm.constellation import QPSK_REFERENCE_TABLE
 from rub_mimo_tpu_torch.ofdm.lfsr import MSequence, lfsr_polys_for_streams

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rub_mimo_tpu.config import ModemConfig
+from rub_mimo_tpu_torch.config import ModemConfig
 from rub_mimo_tpu_torch.kernels import sc_metric as k6
 from rub_mimo_tpu_torch.kernels import sc_sync as k5
 from rub_mimo_tpu_torch.kernels.sc_sync import plateau_scan

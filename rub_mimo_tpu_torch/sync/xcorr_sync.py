@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from rub_mimo_tpu.config import ModemConfig
+from rub_mimo_tpu_torch.config import ModemConfig
 from rub_mimo_tpu_torch.ofdm import preamble
 from rub_mimo_tpu_torch.utils.movsum import moving_sum
 

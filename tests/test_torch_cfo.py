@@ -41,7 +41,8 @@ def test_simulator_cfo_matches_jax_noise_free(flat):
     kw = dict(snr_db=float("inf"), delay=300, seed=3, cfo_subcarriers=CFO,
               flat=flat, num_taps=4)
     ref, _, _ = jsim.simulate_capture(cfg, jsim.ChannelSpec(**kw))
-    got, _, _ = simulator.simulate_capture(cfg, simulator.ChannelSpec(**kw),
+    got, _, _ = simulator.simulate_capture(oracle.pcfg(cfg),
+                                           simulator.ChannelSpec(**kw),
                                            device="cpu")
     # exp and the FIR FFTs round differently in each package (|x| <= ~2.2)
     np.testing.assert_allclose(oracle.n(got), np.asarray(ref), rtol=0,
@@ -82,9 +83,10 @@ def region_case(request):
     """A CFO capture's estimation region and the JAX matched filter's
     offsets on it (sync from the port, held equal to JAX's elsewhere)."""
     cfg = {"tiny": oracle.TINY, "mid": oracle.MID}[request.param]
+    pcfg = oracle.pcfg(cfg)
     cap, _ = oracle.jax_capture(cfg, cfo_subcarriers=CFO, delay=3000)
-    sync = schmidl_cox.synchronize(oracle.t(cap), cfg)
-    region = rx._extract_region(oracle.t(cap), int(sync.sync_index), cfg)
+    sync = schmidl_cox.synchronize(oracle.t(cap), pcfg)
+    region = rx._extract_region(oracle.t(cap), int(sync.sync_index), pcfg)
     joint = not cfg.bit_exact
     mf = jmf.search(jnp.asarray(oracle.n(region)), cfg, joint=joint)
     return cfg, cap, region, mf
@@ -94,18 +96,19 @@ def test_cfo_estimators_match_jax(region_case):
     cfg, _, region, mf = region_case
     jreg = jnp.asarray(oracle.n(region))
     ac, s0 = oracle.t(mf.ac_index).long(), oracle.t(mf.s0_index).long()
-    ph = cfo.access_code_peak_phasors(region, ac, cfg)
+    pcfg = oracle.pcfg(cfg)
+    ph = cfo.access_code_peak_phasors(region, ac, pcfg)
     jph = np.asarray(jcfo.access_code_peak_phasors(jreg, mf.ac_index, cfg))
     assert ph.shape == jph.shape
     # M-term dot products in another summation order
     np.testing.assert_allclose(oracle.n(ph), jph, rtol=0,
                                atol=1e-5 * np.abs(jph).max())
-    got = cfo.s0_halves_cfo(region, s0, cfg)
+    got = cfo.s0_halves_cfo(region, s0, pcfg)
     ref = jcfo.s0_halves_cfo(jreg, mf.s0_index, cfg)
     assert got.dtype == torch.float32
     assert abs(float(got) - float(ref)) < 1e-5
     assert abs(float(got) - CFO) < 0.01  # the halves see the whole CFO
-    got = cfo.residual_cfo(region, ac, cfg)
+    got = cfo.residual_cfo(region, ac, pcfg)
     ref = jcfo.residual_cfo(jreg, mf.ac_index, cfg)
     assert abs(float(got) - float(ref)) < 1e-5
 
@@ -130,7 +133,8 @@ def test_s0_xcorr_sync_matches_jax(case):
     cfg = oracle.TINY
     cap = S0_CASES[case]()
     n_pos = cap.shape[-1] - 100
-    got = oracle.n(xcorr_sync.normalized_s0_score(oracle.t(cap), cfg, n_pos))
+    got = oracle.n(xcorr_sync.normalized_s0_score(oracle.t(cap), oracle.PTINY,
+                                                  n_pos))
     ref = np.asarray(jxs.normalized_s0_score(jnp.asarray(cap), cfg, n_pos))
     # scores in [0, 1] from whole-capture FFT correlations: in windows far
     # below the capture's peak energy the FFT round-off of each package
@@ -143,7 +147,7 @@ def test_s0_xcorr_sync_matches_jax(case):
     assert strong.sum() > cfg.M or case == "all_zero"
     np.testing.assert_allclose(got[strong], ref[strong], rtol=0, atol=1e-4)
     assert np.all((got >= 0) & (got <= 1 + 1e-4))
-    r = xcorr_sync.s0_xcorr_sync(oracle.t(cap), cfg)
+    r = xcorr_sync.s0_xcorr_sync(oracle.t(cap), oracle.PTINY)
     jr = jxs.s0_xcorr_sync(jnp.asarray(cap), cfg)
     assert int(r.peak_index) == int(jr.peak_index)
     assert int(r.sync_index) == int(jr.sync_index)
@@ -160,7 +164,7 @@ def test_smooth_channel_estimate_matches_jax(M):
     rng = np.random.default_rng(M)
     G = (rng.standard_normal((M, 2, 2))
          + 1j * rng.standard_normal((M, 2, 2))).astype(np.complex64)
-    got = smooth.smooth_channel_estimate(oracle.t(G), cfg)
+    got = smooth.smooth_channel_estimate(oracle.t(G), oracle.pcfg(cfg))
     ref = jsmooth.smooth_channel_estimate(jnp.asarray(G), cfg)
     assert got.dtype == torch.complex64
     np.testing.assert_allclose(oracle.n(got), np.asarray(ref), rtol=0,
@@ -172,19 +176,20 @@ def test_noise_var_and_auto_noise_weights_match_jax(region_case):
     jreg = jnp.asarray(oracle.n(region))
     ac = oracle.t(mf.ac_index).long()
     G = np.asarray(jls.estimate_channel(jreg, mf.ac_index, cfg))
-    nv = ls.estimate_noise_var(region, ac, oracle.t(G), cfg)
+    nv = ls.estimate_noise_var(region, ac, oracle.t(G), oracle.pcfg(cfg))
     jnv = jls.estimate_noise_var(jreg, mf.ac_index, jnp.asarray(G), cfg)
     assert nv.dtype == torch.float32 and float(nv) > 0
     np.testing.assert_allclose(float(nv), float(jnv), rtol=1e-4)
     c = cfg.replace(detector=Detector.MMSE, mmse_auto_noise=True)
-    W, g = weights.weights_for(c, oracle.t(G), region, ac)
+    W, g = weights.weights_for(oracle.pcfg(c), oracle.t(G), oracle.t(G),
+                               region, ac)
     jW, jg = jweights.weights_for(c, jnp.asarray(G), jnp.asarray(G), jreg,
                                   mf.ac_index)
     np.testing.assert_allclose(oracle.n(W), np.asarray(jW), rtol=1e-4,
                                atol=1e-5)
     np.testing.assert_array_equal(oracle.n(g), np.asarray(jg))
     with pytest.raises(ValueError, match="mmse_auto_noise"):
-        weights.weights_for(c, oracle.t(G))
+        weights.weights_for(oracle.pcfg(c), oracle.t(G), oracle.t(G))
 
 
 @pytest.fixture(scope="module")
@@ -196,14 +201,15 @@ def mid_decoded():
                              mmse_auto_noise=True)
     cap, tx = oracle.jax_capture(cfg, cfo_subcarriers=CFO, delay=3000)
     return cfg, cap, tx, oracle.jax_decode(cap, cfg), rx.make_decoder(
-        cfg, device="cpu")(cap)
+        oracle.pcfg(cfg), device="cpu")(cap)
 
 
 def test_all_options_decode_matches_jax_at_mid(mid_decoded):
     cfg, _, tx, ref, got = mid_decoded
     oracle.assert_decode_matches_jax(got, ref)
     assert abs(float(got.cfo_hat) - CFO) < 1e-3
-    assert report.score(got, tx, cfg).symbol_error_rate == [0.0, 0.0]
+    assert report.score(got, tx, oracle.pcfg(cfg)).symbol_error_rate == [
+        0.0, 0.0]
 
 
 def test_payload_derotation_on_jax_state_matches_jax(mid_decoded):
@@ -223,7 +229,8 @@ def test_payload_derotation_on_jax_state_matches_jax(mid_decoded):
         st["cfo_hat"] - st["cfo_coarse"], st["decode_start"], cfg.M)
     sig, data = pf.payload_tail_reference(
         payload.real.contiguous(), payload.imag.contiguous(), st["W"],
-        st["normalize_gain"], constellation.table(cfg.modulation),
+        st["normalize_gain"], constellation.table(
+            oracle.pcfg(cfg).modulation),
         np.float32(1.0 / np.sqrt(cfg.M)), n_sym=n_sym, symbol_len=sym,
         cp_len=cfg.cp_len)
     np.testing.assert_array_equal(oracle.n(data).reshape(2, -1),

@@ -1,9 +1,12 @@
-"""The port on an NVIDIA GPU: the CUDA kernels (K1 payload tail, K5 one-pass
-sync, K6 S&C metric) against their plain PyTorch versions, and the decode
-on the card against the decode on the CPU.  Every test here is marked
-``cuda`` and skips without a GPU.
+"""The port on an NVIDIA GPU: the CUDA kernels (K1 strip-fused payload
+tail, K2 fused payload tail, K3 equalize + demap, K4 hard demap, K5
+one-pass sync, K6 S&C metric, K7 CP strip) against their plain PyTorch
+versions, and the decode on the card against the decode on the CPU, on
+every payload tail and mode, with the launch counts of each path.  Every
+test here is marked ``cuda`` and skips without a GPU.
 
-This file imports no jax, so it also runs where jax is not installed:
+This file imports neither jax nor the JAX package, so it also runs where
+jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -12,22 +15,72 @@ import numpy as np
 import pytest
 import torch
 
-from rub_mimo_tpu_torch import Detector, Modulation
+from rub_mimo_tpu_torch import (CommMode, Detector, ModemConfig, Modulation,
+                                tiny_config)
 from rub_mimo_tpu_torch.detect import zf
 from rub_mimo_tpu_torch.io import simulator
+from rub_mimo_tpu_torch.kernels import cp_strip as k7
+from rub_mimo_tpu_torch.kernels import eq_demap as k34
 from rub_mimo_tpu_torch.kernels import payload_fused as pf
 from rub_mimo_tpu_torch.kernels import sc_metric as k6
 from rub_mimo_tpu_torch.kernels import sc_sync as k5
 from rub_mimo_tpu_torch.ofdm import constellation
 from rub_mimo_tpu_torch.pipeline import report, rx
 from rub_mimo_tpu_torch.utils import movsum
-import torch_oracle as oracle
 
 pytestmark = pytest.mark.cuda
 
+torch.set_num_threads(1)
+
+# the sizes of tests/torch_oracle.py's TINY and MID, as the port's configs
+TINY = tiny_config()                              # M=64, bit_exact (per-code)
+MID = ModemConfig(pid_max=12, bit_exact=False)    # M=2048, joint timing
+TIE_MARGIN = 1e-4  # decisions may differ only where the plain scores tie
+
+
+def require_cuda() -> torch.device:
+    """Skip the calling test unless a CUDA device is present (decided
+    inside the test, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    return torch.device("cuda")
+
+
+def n(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def random_tail_inputs(seed: int, S: int, M: int, cp: int, n_sym: int):
+    """Seeded flat payload planes [S, n_sym*(M+cp)] f32 (x2) and a
+    well-conditioned channel G [M, S, S] complex64 (numpy)."""
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal((2, S, n_sym * (M + cp))).astype(np.float32)
+    G = ((rng.standard_normal((M, S, S))
+          + 1j * rng.standard_normal((M, S, S))) / np.sqrt(2)
+         + 2.0 * np.eye(S)).astype(np.complex64)
+    return p[0], p[1], G
+
+
+def top2_margin(y: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+    """The plain demap's best minus second-best score at each y."""
+    c = torch.as_tensor(constellation.demap_planes(table), device=y.device)
+    scores = (y.real.unsqueeze(-1) * c[0] + y.imag.unsqueeze(-1) * c[1]
+              - c[2])
+    top = torch.topk(scores, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def assert_decisions_match(got, ref, y_ref, table) -> None:
+    """Decisions equal but where the plain scores at y_ref tie to within
+    TIE_MARGIN (FMA contraction in the kernels)."""
+    bad = got != ref
+    if bool(bad.any()):
+        assert bool((top2_margin(y_ref[bad], table) < TIE_MARGIN).all())
+
 
 def _tail_case(dev, M, cp, n_sym):
-    p_re, p_im, G = oracle.random_tail_inputs(M + n_sym, 2, M, cp, n_sym)
+    p_re, p_im, G = random_tail_inputs(M + n_sym, 2, M, cp, n_sym)
     W, gain = zf.invert(torch.as_tensor(G, device=dev))
     args = (torch.as_tensor(p_re, device=dev),
             torch.as_tensor(p_im, device=dev), W, gain,
@@ -39,7 +92,7 @@ def _tail_case(dev, M, cp, n_sym):
 @pytest.mark.parametrize("M,cp,n_sym", [(2048, 152, 13), (64, 16, 8),
                                         (1024, 72, 5), (4096, 288, 3)])
 def test_kernel_matches_plain_tail(M, cp, n_sym):
-    dev = oracle.require_cuda()
+    dev = require_cuda()
     args, kw = _tail_case(dev, M, cp, n_sym)
     before = pf.payload_fused_strip.launches
     sig, data = pf.payload_fused_strip(*args, **kw)
@@ -55,7 +108,7 @@ def test_kernel_matches_plain_tail(M, cp, n_sym):
 
 
 def test_kernel_rejects_what_it_cannot_take():
-    dev = oracle.require_cuda()
+    dev = require_cuda()
     args, kw = _tail_case(dev, 64, 16, 4)
     p_re, p_im, W, gain, tab, norm = args
     with pytest.raises(ValueError):
@@ -86,26 +139,26 @@ def _dc_run_capture(T=60_000, late=50_000):
 
 # TINY is M=64 (4032-sample tiles), MID M=2048 (2048-sample tiles)
 SYNC_CASES = {
-    "d501": lambda: (oracle.TINY, _capture(oracle.TINY, delay=501)),
-    "d130_snr30": lambda: (oracle.TINY, _capture(oracle.TINY, delay=130)),
-    "d2000_snr25": lambda: (oracle.TINY, _capture(oracle.TINY, delay=2000,
+    "d501": lambda: (TINY, _capture(TINY, delay=501)),
+    "d130_snr30": lambda: (TINY, _capture(TINY, delay=130)),
+    "d2000_snr25": lambda: (TINY, _capture(TINY, delay=2000,
                                                   snr_db=25.0)),
-    "d64_first_tile": lambda: (oracle.TINY, _capture(oracle.TINY, delay=64)),
-    "late_fire": lambda: (oracle.TINY, _capture(oracle.TINY, delay=40_400,
+    "d64_first_tile": lambda: (TINY, _capture(TINY, delay=64)),
+    "late_fire": lambda: (TINY, _capture(TINY, delay=40_400,
                                                 trailing=100)),
-    "noise_only": lambda: (oracle.TINY, torch.as_tensor(
+    "noise_only": lambda: (TINY, torch.as_tensor(
         (0.01 * np.random.default_rng(0).standard_normal((2, 9000, 2)))
         .astype(np.float32).view(np.complex64)[..., 0])),
-    "leading_zeros": lambda: (oracle.TINY, torch.nn.functional.pad(
-        _capture(oracle.TINY, delay=300), (100_000, 0))),
-    "run_across_tiles": lambda: (oracle.TINY, _dc_run_capture()),
-    "mid": lambda: (oracle.MID, _capture(oracle.MID, delay=7000)),
+    "leading_zeros": lambda: (TINY, torch.nn.functional.pad(
+        _capture(TINY, delay=300), (100_000, 0))),
+    "run_across_tiles": lambda: (TINY, _dc_run_capture()),
+    "mid": lambda: (MID, _capture(MID, delay=7000)),
 }
 
 
 @pytest.mark.parametrize("case", list(SYNC_CASES))
 def test_sc_sync_kernel_matches_plain(case):
-    dev = oracle.require_cuda()
+    dev = require_cuda()
     cfg, x = SYNC_CASES[case]()
     x = x.to(dev)
     args = (x, cfg.M, cfg.cp_len, cfg.plateau_threshold)
@@ -116,7 +169,7 @@ def test_sc_sync_kernel_matches_plain(case):
     assert k5.sc_sync_fused.launches == before + 1
     for a, b, name in zip(got[:3], ref[:3], ("synced", "t_star", "starts")):
         assert a.dtype == b.dtype, name
-        np.testing.assert_array_equal(oracle.n(a), oracle.n(b), err_msg=name)
+        np.testing.assert_array_equal(n(a), n(b), err_msg=name)
     cfo = [float(torch.angle((-c).sum()) / np.pi) for c in (got[3], ref[3])]
     assert abs(cfo[0] - cfo[1]) < 1e-4
     if case != "noise_only":
@@ -126,7 +179,7 @@ def test_sc_sync_kernel_matches_plain(case):
 @pytest.mark.parametrize("M,T", [(64, 100_777), (2048, (1 << 20) + 777),
                                  (4096, 50_000)])
 def test_sc_metric_kernel_matches_plain(M, T):
-    dev = oracle.require_cuda()
+    dev = require_cuda()
     rng = np.random.default_rng(T)
     x = torch.as_tensor((rng.standard_normal((2, T))
                          + 1j * rng.standard_normal((2, T)))
@@ -142,16 +195,16 @@ def test_sc_metric_kernel_matches_plain(M, T):
     # 0/0 exactly on the windows of zeros (counted in integers)
     zeros = movsum.moving_sum((x != 0).to(torch.int64), M) == 0
     assert bool(zeros.any())
-    np.testing.assert_array_equal(oracle.n(torch.isnan(got)), oracle.n(zeros))
+    np.testing.assert_array_equal(n(torch.isnan(got)), n(zeros))
     # elsewhere the tolerance of the JAX package's kernel test, on samples
     # whose plain energy is not a cancellation residue
     ok = torch.isfinite(ref) & (energy >= 1e-6 * energy.median())
-    np.testing.assert_allclose(oracle.n(got[ok]), oracle.n(ref[ok]),
+    np.testing.assert_allclose(n(got[ok]), n(ref[ok]),
                                rtol=2e-3, atol=1e-4)
 
 
 def test_sync_kernels_reject_what_they_cannot_take():
-    dev = oracle.require_cuda()
+    dev = require_cuda()
     x = torch.zeros((2, 1000), dtype=torch.complex64, device=dev)
     for bad in (x.to(torch.complex128), x[:, ::2], x[0]):
         with pytest.raises(ValueError):
@@ -168,10 +221,10 @@ def test_sync_kernels_reject_what_they_cannot_take():
                                      device=dev), 64, 16, 0.95)
 
 
-@pytest.mark.parametrize("cfg", [oracle.TINY, oracle.MID],
+@pytest.mark.parametrize("cfg", [TINY, MID],
                          ids=["tiny", "mid"])
 def test_decode_on_card_matches_cpu(cfg):
-    dev = oracle.require_cuda()
+    dev = require_cuda()
     spec = simulator.ChannelSpec(snr_db=30.0, delay=3000, seed=3)
     cap, tx, _ = simulator.simulate_capture(cfg, spec, device="cpu")
     on_cpu = rx.make_decoder(cfg, device="cpu")(cap)
@@ -182,10 +235,10 @@ def test_decode_on_card_matches_cpu(cfg):
     for f in ("synced", "sync_index", "sync_sample", "plateau_start",
               "s0_index", "ac_index", "decode_start", "rx_data",
               "symbol_valid"):
-        np.testing.assert_array_equal(oracle.n(getattr(on_card, f)),
-                                      oracle.n(getattr(on_cpu, f)),
+        np.testing.assert_array_equal(n(getattr(on_card, f)),
+                                      n(getattr(on_cpu, f)),
                                       err_msg=f)
-    np.testing.assert_allclose(oracle.n(on_card.G), oracle.n(on_cpu.G),
+    np.testing.assert_allclose(n(on_card.G), n(on_cpu.G),
                                rtol=1e-4, atol=1e-6)
     assert report.score(on_card, tx, cfg).symbol_error_rate == [0.0, 0.0]
 
@@ -202,10 +255,10 @@ CARD_OPTION_CASES = {
 
 
 @pytest.mark.parametrize("case", list(CARD_OPTION_CASES))
-@pytest.mark.parametrize("cfg", [oracle.TINY, oracle.MID],
+@pytest.mark.parametrize("cfg", [TINY, MID],
                          ids=["tiny", "mid"])
 def test_decode_options_on_card_match_cpu(cfg, case):
-    dev = oracle.require_cuda()
+    dev = require_cuda()
     change, cap_kw, kw, (n5, n6) = CARD_OPTION_CASES[case]
     cfg = cfg.replace(**change)
     spec = simulator.ChannelSpec(snr_db=30.0, delay=3000, seed=3, **cap_kw)
@@ -220,18 +273,217 @@ def test_decode_options_on_card_match_cpu(cfg, case):
     for f in ("synced", "sync_index", "sync_sample", "plateau_start",
               "plateau_end", "s0_index", "ac_index", "decode_start",
               "rx_data", "symbol_valid"):
-        np.testing.assert_array_equal(oracle.n(getattr(on_card, f)),
-                                      oracle.n(getattr(on_cpu, f)),
+        np.testing.assert_array_equal(n(getattr(on_card, f)),
+                                      n(getattr(on_cpu, f)),
                                       err_msg=f)
-    np.testing.assert_allclose(oracle.n(on_card.G), oracle.n(on_cpu.G),
+    np.testing.assert_allclose(n(on_card.G), n(on_cpu.G),
                                rtol=1e-4, atol=1e-6)
     assert abs(float(on_card.cfo_hat) - float(on_cpu.cfo_hat)) < 1e-4
     if case == "keep_debug":
         m, ref = on_card.metric, on_cpu.metric
         assert m.dtype == torch.float32 and m.shape == cap.shape
         near = ref > 0.5  # the metric is read only near its threshold
-        np.testing.assert_allclose(oracle.n(m.cpu()[near]),
-                                   oracle.n(ref[near]), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(n(m.cpu()[near]),
+                                   n(ref[near]), rtol=0, atol=1e-5)
     if case == "cfo_options":
         assert abs(float(on_card.cfo_hat) - 0.05) < 1e-3
     assert report.score(on_card, tx, cfg).symbol_error_rate == [0.0, 0.0]
+
+
+# ---- K7, K4, K3, K2: the payload kernels of the generic tail ----
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32],
+                         ids=["c64", "f32"])
+@pytest.mark.parametrize("S,M,cp,n_sym,extra", [
+    (2, 2048, 152, 40, 0), (2, 64, 16, 9, 5), (1, 50, 14, 7, 3),
+    (3, 33, 7, 5, 1)])
+def test_cp_strip_kernel_matches_plain(dtype, S, M, cp, n_sym, extra):
+    dev = require_cuda()
+    rng = np.random.default_rng(M + n_sym)
+    L = n_sym * (M + cp) + extra
+    x = torch.as_tensor(rng.standard_normal((S, 2 * L)).astype(np.float32),
+                        device=dev)
+    x = x.view(torch.complex64) if dtype == torch.complex64 else x[:, :L]
+    x = x.contiguous()
+    before = k7.cp_strip.launches
+    got = k7.cp_strip(x, n_sym, M + cp, cp)
+    ref = k7.cp_strip_reference(x, n_sym, M + cp, cp)
+    torch.cuda.synchronize()
+    assert k7.cp_strip.launches == before + 1
+    assert got.dtype == dtype and got.shape == (S, n_sym, M)
+    assert torch.equal(got, ref)  # a copy: bit for bit
+
+
+@pytest.mark.parametrize("shape,mod", [
+    ((2, 40, 2048), Modulation.ARB32OPT), ((2, 40, 1638), Modulation.QAM16),
+    ((1, 100, 50), Modulation.QAM256), ((3, 7), Modulation.BPSK)])
+def test_demap_kernel_matches_plain(shape, mod):
+    dev = require_cuda()
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    y = torch.as_tensor((rng.standard_normal(shape)
+                         + 1j * rng.standard_normal(shape)).astype(
+                             np.complex64) * 0.8, device=dev)
+    table = constellation.table(mod)
+    before = k34.demap.launches
+    got = k34.demap(y, table)
+    ref = constellation.hard_demap(y, table)
+    torch.cuda.synchronize()
+    assert k34.demap.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == y.shape
+    assert_decisions_match(got, ref, y, table)
+    # rows of zeros (inactive streams) decide point 0 on a PSK table
+    zeros = torch.zeros((2, 64), dtype=torch.complex64, device=dev)
+    assert not k34.demap(zeros, constellation.table(Modulation.QPSK)).any()
+    # constellation.demodulate routes CUDA tensors to the kernel
+    before = k34.demap.launches
+    assert torch.equal(constellation.demodulate(y, mod), got)
+    assert k34.demap.launches == before + 1
+
+
+def _eq_case(dev, S, n_sym, M, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor((rng.standard_normal((S, n_sym, M))
+                         + 1j * rng.standard_normal((S, n_sym, M))).astype(
+                             np.complex64), device=dev)
+    _, _, G = random_tail_inputs(seed, S, M, 0, 1)
+    W, gain = zf.invert(torch.as_tensor(G, device=dev))
+    return x, W, gain
+
+
+@pytest.mark.parametrize("S,n_sym,M", [(2, 40, 2048), (2, 9, 100),
+                                       (1, 5, 64), (4, 3, 384)])
+def test_eq_demap_kernel_matches_plain(S, n_sym, M):
+    dev = require_cuda()
+    X, W, gain = _eq_case(dev, S, n_sym, M, M + S)
+    X = X * np.float32(1.0 / np.sqrt(M))
+    table = constellation.table(Modulation.ARB32OPT)
+    before = k34.eq_demap.launches
+    sig, data = k34.eq_demap(X, W, gain, table)
+    ref_sig, ref_data = k34.eq_demap_reference(X, W, gain, table)
+    torch.cuda.synchronize()
+    assert k34.eq_demap.launches == before + 1
+    assert data.shape == (S, n_sym, M) and data.dtype == torch.int32
+    rms = float(torch.sqrt(torch.mean(ref_sig.abs() ** 2)))
+    assert float((sig - ref_sig).abs().max()) <= 1e-5 * rms
+    assert_decisions_match(data, ref_data, ref_sig, table)
+    none_sig, d2 = k34.eq_demap(X, W, gain, table, emit_sig=False)
+    assert none_sig is None and torch.equal(d2, data)
+
+
+@pytest.mark.parametrize("S,n_sym,M", [(2, 40, 2048), (1, 9, 64),
+                                       (3, 4, 1024), (4, 3, 4096)])
+def test_payload_fused_kernel_matches_plain(S, n_sym, M):
+    dev = require_cuda()
+    x, W, gain = _eq_case(dev, S, n_sym, M, M + 7 * S)
+    table = constellation.table(Modulation.ARB32OPT)
+    norm = np.float32(1.0 / np.sqrt(M))
+    before = pf.payload_fused.launches
+    sig, data = pf.payload_fused(x, W, gain, table, norm)
+    ref_sig, ref_data = pf.payload_fused_reference(x, W, gain, table, norm)
+    torch.cuda.synchronize()
+    assert pf.payload_fused.launches == before + 1
+    assert data.shape == (S, n_sym, M) and data.dtype == torch.int32
+    rms = float(torch.sqrt(torch.mean(ref_sig.abs() ** 2)))
+    assert float((sig - ref_sig).abs().max()) <= 1e-4 * rms
+    assert_decisions_match(data, ref_data, ref_sig, table)
+
+
+def test_payload_kernels_reject_what_they_cannot_take():
+    dev = require_cuda()
+    x, W, gain = _eq_case(dev, 2, 3, 64, 1)
+    qpsk = constellation.table(Modulation.QPSK)
+    qam256 = constellation.table(Modulation.QAM256)
+    norm = np.float32(0.125)
+    for call in (
+        lambda: pf.payload_fused(x, W.cpu(), gain, qpsk, norm),  # CPU mixed
+        lambda: pf.payload_fused(x[:, :, :48].contiguous(), W[:48], gain[:48],
+                                 qpsk, norm),                    # M=48
+        lambda: pf.payload_fused(x, W, gain, qam256, norm),      # 256 points
+        lambda: pf.payload_fused(x.transpose(0, 1), W, gain, qpsk, norm),
+        lambda: k34.eq_demap(x, W, gain.cpu(), qpsk),            # CPU mixed
+        lambda: k34.eq_demap(x[:1], W, gain, qpsk),              # W shape
+        lambda: k34.eq_demap(x, W, gain, qam256),                # 256 points
+        lambda: k34.demap(x.real, qpsk),                         # dtype
+        lambda: k34.demap(x.transpose(1, 2), qpsk),              # strides
+        lambda: k34.demap(x, np.zeros(257, np.complex64)),       # 257 points
+        lambda: k7.cp_strip(x[0], 3, 60, 4),                     # too short
+        lambda: k7.cp_strip(x.to(torch.complex128)[0], 1, 64, 4),  # dtype
+        lambda: k7.cp_strip(x[:, 0, :].t(), 1, 2, 1),            # strides
+        lambda: k7.cp_strip(x[0], 1, 64, 64),                    # cp >= sym
+    ):
+        with pytest.raises(ValueError):
+            call()
+
+
+def _counters():
+    return {"k1": pf.payload_fused_strip, "k2": pf.payload_fused,
+            "k3": k34.eq_demap, "k4": k34.demap, "k7": k7.cp_strip}
+
+
+# (config change, capture options, payload_impl, launches of K1 K2 K3 K4
+# K7 at TINY (8 frames) and at MID (12 frames))
+SISO = dict(num_streams=1, mode=CommMode.SISO, siso_tx=0, siso_rx=0,
+            bit_exact=False)
+GENERIC_CASES = {
+    "fused": (dict(), dict(), "fused", (0, 1, 0, 0, 1), (0, 1, 0, 0, 1)),
+    "eqdemap": (dict(), dict(), "eqdemap", (0, 0, 1, 0, 1), (0, 0, 1, 0, 1)),
+    "xla": (dict(), dict(), "xla", (0, 0, 0, 1, 1), (0, 0, 0, 1, 1)),
+    "guard_bands": (dict(use_all_carriers=False, normalize_rx_scale=True,
+                         bit_exact=False), dict(), "auto",
+                    (0, 0, 0, 1, 1), (0, 0, 0, 1, 1)),
+    "siso": (SISO, dict(identity=True), "auto",
+             (0, 0, 0, 1, 1), (0, 0, 0, 1, 1)),
+    "rx_diversity": (dict(mode=CommMode.RX_DIVERSITY, bit_exact=False,
+                          modulation=Modulation.QAM16), dict(), "auto",
+                     (0, 0, 0, 1, 1), (0, 0, 0, 1, 1)),
+    "alamouti": (dict(mode=CommMode.ALAMOUTI, bit_exact=False), dict(),
+                 "auto", (0, 0, 0, 1, 1), (0, 0, 0, 1, 1)),
+    "sic": (dict(detector=Detector.SIC, bit_exact=False), dict(), "auto",
+            (0, 0, 0, 3, 1), (0, 0, 0, 3, 1)),
+    "ml": (dict(detector=Detector.ML, bit_exact=False,
+                modulation=Modulation.QPSK), dict(), "auto",
+           (0, 0, 0, 1, 1), (0, 0, 0, 1, 1)),
+    "track_channel": (dict(track_channel=True, track_block_frames=4,
+                           bit_exact=False), dict(), "auto",
+                      (0, 0, 0, 3, 1), (0, 0, 0, 4, 1)),
+    "track_phase": (dict(track_phase=True), dict(), "auto",
+                    (0, 0, 0, 2, 1), (0, 0, 0, 2, 1)),
+    "cfo_generic": (dict(correct_cfo=True, use_all_carriers=False,
+                         bit_exact=False), dict(cfo_subcarriers=0.05),
+                    "auto", (0, 0, 0, 1, 1), (0, 0, 0, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(GENERIC_CASES))
+@pytest.mark.parametrize("cfg", [TINY, MID], ids=["tiny", "mid"])
+def test_generic_tail_decodes_on_card_match_cpu(cfg, case):
+    dev = require_cuda()
+    change, cap_kw, impl, n_tiny, n_mid = GENERIC_CASES[case]
+    cfg = cfg.replace(**change)
+    spec = simulator.ChannelSpec(**{**dict(snr_db=30.0, delay=3000, seed=3),
+                                    **cap_kw})
+    cap, tx, _ = simulator.simulate_capture(cfg, spec, device="cpu")
+    on_cpu = rx.make_decoder(cfg, device="cpu", payload_impl=impl)(cap)
+    counts = _counters()
+    before = {k: c.launches for k, c in counts.items()}
+    on_card = rx.make_decoder(cfg, device=dev, input_format="planes",
+                              payload_impl=impl)(
+        cap.real.contiguous(), cap.imag.contiguous())
+    torch.cuda.synchronize()
+    got = tuple(c.launches - before[k] for k, c in counts.items())
+    assert got == (n_tiny if cfg.M == 64 else n_mid), got
+    for f in ("synced", "sync_index", "sync_sample", "plateau_start",
+              "plateau_end", "s0_index", "ac_index", "decode_start",
+              "rx_data", "symbol_valid"):
+        np.testing.assert_array_equal(n(getattr(on_card, f)),
+                                      n(getattr(on_cpu, f)), err_msg=f)
+    np.testing.assert_allclose(n(on_card.G), n(on_cpu.G), rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_allclose(n(on_card.W), n(on_cpu.W), rtol=1e-4,
+                               atol=1e-6)
+    scale = float(on_cpu.rx_sig.abs().max())
+    np.testing.assert_allclose(n(on_card.rx_sig), n(on_cpu.rx_sig), rtol=0,
+                               atol=1e-4 * scale)
+    assert (on_card.Y is None) == (cfg.detector != Detector.ML)
+    ser = report.score(on_card, tx, cfg).symbol_error_rate
+    assert ser == [0.0] * len(ser)

@@ -36,7 +36,7 @@ def decoded(request):
     cfg, cap_kw = CASES[request.param]
     cap, tx = oracle.jax_capture(cfg, **cap_kw)
     return cfg, cap, tx, oracle.jax_decode(cap, cfg), rx.decode(
-        oracle.t(cap), cfg)
+        oracle.t(cap), oracle.pcfg(cfg))
 
 
 def test_decode_matches_jax(decoded):
@@ -59,7 +59,7 @@ def test_decode_matches_jax(decoded):
 
 def test_score_matches_jax(decoded):
     cfg, _, tx, ref, got = decoded
-    ours = report.score(got, tx, cfg)
+    ours = report.score(got, tx, oracle.pcfg(cfg))
     theirs = jreport.score(ref, tx, cfg)
     assert ours.synced == theirs.synced
     assert ours.frames_decoded == theirs.frames_decoded
@@ -72,11 +72,12 @@ def test_score_matches_jax(decoded):
 
 def test_planes_and_complex_decoders_agree(decoded):
     cfg, cap, _, _, got = decoded
-    planes = rx.make_decoder(cfg, device="cpu", input_format="planes")(
+    pcfg = oracle.pcfg(cfg)
+    planes = rx.make_decoder(pcfg, device="cpu", input_format="planes")(
         cap.real.copy(), cap.imag.copy())
     assert torch.equal(planes.rx_data, got.rx_data)
     assert torch.equal(planes.rx_sig, got.rx_sig)
-    serving = rx.make_decoder(cfg, device="cpu", keep_rx_sig=False)(cap)
+    serving = rx.make_decoder(pcfg, device="cpu", keep_rx_sig=False)(cap)
     assert serving.rx_sig is None
     assert torch.equal(serving.rx_data, got.rx_data)
 
@@ -106,14 +107,14 @@ def test_decode_options_match_jax(case):
     cfg, cap_kw, kw = OPTION_CASES[case]
     cap, tx = oracle.jax_capture(cfg, **cap_kw)
     ref = oracle.jax_decode(cap, cfg, **kw)
-    got = rx.make_decoder(cfg, device="cpu", **kw)(cap)
+    got = rx.make_decoder(oracle.pcfg(cfg), device="cpu", **kw)(cap)
     assert bool(ref.synced)
     oracle.assert_decode_matches_jax(got, ref)
     assert (got.metric is None) == (case != "keep_debug")
     if case.startswith("fallback"):
         # only the S0 cross-correlation acquires at this SNR
-        assert not bool(rx.decode(oracle.t(cap), oracle.TINY).synced)
-    ser = report.score(got, tx, cfg).symbol_error_rate
+        assert not bool(rx.decode(oracle.t(cap), oracle.PTINY).synced)
+    ser = report.score(got, tx, oracle.pcfg(cfg)).symbol_error_rate
     assert ser == jreport.score(ref, tx, cfg).symbol_error_rate
     if not case.startswith("fallback"):
         assert ser == [0.0, 0.0]
@@ -152,25 +153,34 @@ def test_golden_capture_decodes_to_expected():
     dict(mode=CommMode.SISO), dict(detector=Detector.ML),
     dict(track_phase=True), dict(detector=Detector.SIC)])
 def test_unported_options_raise(kw):
+    """These options are ported now; what the decode still refuses is a
+    JAX package config (TypeError, naming convert.config_from_jax), the
+    TPU-only payload_impl "fused_packed", and unknown formats."""
     cfg = ModemConfig(**{**dict(num_subcarriers=64, cp_len=16,
                                 num_access_codes=4, pid_max=8), **kw})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="config_from_jax"):
         rx.make_decoder(cfg, device="cpu")
+    with pytest.raises(TypeError, match="config_from_jax"):
+        rx.decode(torch.zeros((2, 100), dtype=torch.complex64), cfg)
+    rx.make_decoder(oracle.pcfg(cfg), device="cpu")
+    with pytest.raises(ValueError, match="fused_packed"):
+        rx.make_decoder(oracle.pcfg(cfg), device="cpu",
+                        payload_impl="fused_packed")
     with pytest.raises(ValueError):
-        rx.make_decoder(oracle.TINY, device="cpu", input_format="bytes")
+        rx.make_decoder(oracle.PTINY, device="cpu", input_format="bytes")
 
 
 def test_cuda_decoder_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        rx.make_decoder(oracle.TINY, device="cuda")
+        rx.make_decoder(oracle.PTINY, device="cuda")
 
 
 def test_port_imports_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
     port_pattern = re.compile(
-        r"^\s*(import|from)\s+rub_mimo_tpu\.(?!config\b)", re.M)
+        r"^\s*(import|from)\s+rub_mimo_tpu(\.|\s|$)", re.M)
     files = sorted(f for f in (REPO / "rub_mimo_tpu_torch").rglob("*.py")
                    if "_build" not in f.parts)  # build outputs, not source
     files.append(REPO / "chip_smoke.py")
@@ -185,6 +195,7 @@ def test_decode_runs_with_jax_unimportable():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
+        "sys.modules['rub_mimo_tpu'] = None\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "from rub_mimo_tpu_torch import tiny_config\n"
@@ -197,6 +208,8 @@ def test_decode_runs_with_jax_unimportable():
         "rep = report.score(r, tx, cfg)\n"
         "assert rep.synced and rep.symbol_error_rate == [0.0, 0.0], rep\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in\n"
+        "               sys.modules.items() if v is not None)\n"
+        "assert not any(m.startswith('rub_mimo_tpu.') for m, v in\n"
         "               sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )

@@ -28,13 +28,13 @@ def test_mid_decode_options_match_jax(case):
     cfg, cap_kw, kw = MID_CASES[case]
     cap, tx = oracle.jax_capture(cfg, delay=3000, **cap_kw)
     ref = oracle.jax_decode(cap, cfg, **kw)
-    got = rx.make_decoder(cfg, device="cpu", **kw)(cap)
+    got = rx.make_decoder(oracle.pcfg(cfg), device="cpu", **kw)(cap)
     assert bool(ref.synced)
     oracle.assert_decode_matches_jax(got, ref)
-    ser = report.score(got, tx, cfg).symbol_error_rate
+    ser = report.score(got, tx, oracle.pcfg(cfg)).symbol_error_rate
     assert ser == jreport.score(ref, tx, cfg).symbol_error_rate
     if case.startswith("fallback"):
-        assert not bool(rx.decode(oracle.t(cap), oracle.MID).synced)
+        assert not bool(rx.decode(oracle.t(cap), oracle.PMID).synced)
         assert abs(float(got.cfo_hat) - 0.05) < 1e-3
     else:
         assert ser == [0.0, 0.0]

@@ -32,7 +32,8 @@ def case(request):
     si = int(r.sync_index)
     jregion = np.asarray(jrx._extract_region(jnp.asarray(cap),
                                              r.sync_index, cfg))
-    return cfg, r, jregion, rx._extract_region(oracle.t(cap), si, cfg)
+    return cfg, r, jregion, rx._extract_region(oracle.t(cap), si,
+                                               oracle.pcfg(cfg))
 
 
 def test_region_equal(case):
@@ -43,7 +44,7 @@ def test_region_equal(case):
 @pytest.mark.parametrize("joint", [False, True])
 def test_matched_filter_matches_jax(case, joint):
     cfg, _, jregion, region = case
-    got = matched_filter.search(region, cfg, joint=joint)
+    got = matched_filter.search(region, oracle.pcfg(cfg), joint=joint)
     ref = jmf.search(jnp.asarray(jregion), cfg, joint=joint)
     np.testing.assert_array_equal(oracle.n(got.s0_index),
                                   np.asarray(ref.s0_index))
@@ -51,19 +52,20 @@ def test_matched_filter_matches_jax(case, joint):
                                   np.asarray(ref.ac_index))
     np.testing.assert_allclose(oracle.n(got.ac_peak), np.asarray(ref.ac_peak),
                                rtol=1e-4, atol=1e-7)
-    np.testing.assert_array_equal(matched_filter.templates(cfg),
+    np.testing.assert_array_equal(matched_filter.templates(oracle.pcfg(cfg)),
                                   jmf.templates(cfg))
 
 
 def test_decode_offsets_and_channel_match_jax(case):
     cfg, r, _, region = case
     joint = (not cfg.bit_exact) and cfg.timing_mode == "joint"
-    mf = matched_filter.search(region, cfg, joint=joint)
+    pcfg = oracle.pcfg(cfg)
+    mf = matched_filter.search(region, pcfg, joint=joint)
     np.testing.assert_array_equal(oracle.n(mf.s0_index),
                                   np.asarray(r.s0_index))
     np.testing.assert_array_equal(oracle.n(mf.ac_index),
                                   np.asarray(r.ac_index))
-    G = ls.estimate_channel(region, mf.ac_index, cfg)
+    G = ls.estimate_channel(region, mf.ac_index, pcfg)
     np.testing.assert_allclose(oracle.n(G), np.asarray(r.G), rtol=1e-4,
                                atol=1e-6)
 
@@ -77,7 +79,7 @@ def test_ls_uniform_and_gathered_paths_match_jax(case, bit_exact):
     cfg = cfg0.replace(bit_exact=bit_exact)
     ac = np.asarray(r.ac_index)
     joint = (not cfg0.bit_exact) and cfg0.timing_mode == "joint"
-    got = ls.estimate_channel(region, oracle.t(ac), cfg)
+    got = ls.estimate_channel(region, oracle.t(ac), oracle.pcfg(cfg))
     for uni in {False, joint}:
         ref = jls.estimate_channel(jnp.asarray(jregion), jnp.asarray(ac),
                                    cfg, uniform=uni)
@@ -93,8 +95,8 @@ def test_code_ffts_clamps_out_of_range_offsets_like_jax(case):
     ac[0, 1] += 1
     ac[0, 0] = -5
     ac[-1, -1] = region.shape[-1]
-    offs = ls.ac_offsets(oracle.t(ac), cfg)
-    got = ls.code_ffts(region, offs, cfg)
+    offs = ls.ac_offsets(oracle.t(ac), oracle.pcfg(cfg))
+    got = ls.code_ffts(region, offs, oracle.pcfg(cfg))
     ref = jls.code_ffts(jnp.asarray(jregion), oracle.n(offs), cfg,
                         uniform=False)
     np.testing.assert_allclose(oracle.n(got), np.asarray(ref), rtol=1e-4,
@@ -128,12 +130,12 @@ def test_mmse_and_weight_selection_match_jax(case):
     np.testing.assert_allclose(oracle.n(W), np.asarray(jW), rtol=1e-4,
                                atol=1e-5)
     np.testing.assert_array_equal(oracle.n(g), np.asarray(jg))
-    for det in (Detector.ZF, Detector.MMSE):
+    for det in (Detector.ZF, Detector.MMSE, Detector.SIC):
         c = cfg.replace(detector=det)
-        W, g = weights.weights_for(c, oracle.t(G))
+        W, g = weights.weights_for(oracle.pcfg(c), oracle.t(G), oracle.t(G))
         jW, jg = jweights.weights_for(c, jnp.asarray(G), jnp.asarray(G))
         np.testing.assert_allclose(oracle.n(W), np.asarray(jW), rtol=1e-4,
                                    atol=1e-5)
         np.testing.assert_allclose(oracle.n(g), np.asarray(jg), rtol=1e-5)
-    with pytest.raises(NotImplementedError):
-        weights.weights_for(cfg.replace(detector=Detector.SIC), oracle.t(G))
+    # SIC works on the channel directly: zero weights, unit gain
+    assert not W.any() and bool((g == 1).all())

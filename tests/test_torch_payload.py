@@ -11,11 +11,11 @@ import torch
 
 import jax.numpy as jnp
 
-from rub_mimo_tpu.config import Modulation
 from rub_mimo_tpu.kernels.payload_fused import packed_perm
 from rub_mimo_tpu.kernels.payload_fused import (
     payload_fused_strip as jax_payload_fused_strip)
 from rub_mimo_tpu.pipeline import rx as jrx
+from rub_mimo_tpu_torch import Modulation as PModulation
 from rub_mimo_tpu_torch import convert
 from rub_mimo_tpu_torch.kernels import _build
 from rub_mimo_tpu_torch.kernels import payload_fused as pf
@@ -44,7 +44,7 @@ def mid():
 
 
 def _tail_args(cfg):
-    return (constellation.table(cfg.modulation),
+    return (constellation.table(oracle.pcfg(cfg).modulation),
             np.float32(1.0 / np.sqrt(cfg.M)))
 
 
@@ -148,12 +148,16 @@ def test_strip_supported_gate():
     assert not pf.strip_supported(96, 2, 4)       # not a power of two
     assert not pf.strip_supported(2048, 5, 32)    # more than 4 streams
     assert not pf.strip_supported(2048, 2, 256)   # more than 64 points
-    with pytest.raises(NotImplementedError, match="guard-band"):
-        rx.check_supported(oracle.MID.replace(use_all_carriers=False))
-    assert rx.kernel_applicable(oracle.MID)
-    assert rx.kernel_applicable(oracle.TINY)
+    # the config gate: a guard-band allocation, another mode or detector,
+    # tracking, or more points than the kernels take, go to the generic
+    # tail (no raise)
     assert not rx.kernel_applicable(
-        oracle.MID.replace(modulation=Modulation.QAM256))
+        oracle.PMID.replace(use_all_carriers=False))
+    rx.check_supported(oracle.PMID.replace(use_all_carriers=False))
+    assert rx.kernel_applicable(oracle.PMID)
+    assert rx.kernel_applicable(oracle.PTINY)
+    assert not rx.kernel_applicable(
+        oracle.PMID.replace(modulation=PModulation.QAM256))
 
 
 def test_kernel_input_checks():
@@ -161,7 +165,7 @@ def test_kernel_input_checks():
     p = torch.zeros((S, n_sym * (M + cp)))
     W = torch.zeros((M, S, S), dtype=torch.complex64)
     g = torch.zeros(M)
-    tab = constellation.table(Modulation.QPSK)
+    tab = constellation.table(PModulation.QPSK)
     pf._check(p, p, W, g, tab, n_sym, M + cp, cp)  # accepted
     bad = [
         (p.double(), p, W, g, tab),                      # dtype

@@ -32,7 +32,7 @@ def test_moving_sum_and_delay_match_jax(complex_):
 
 def test_sc_metric_and_plateau_scan_match_jax():
     cap, _ = oracle.jax_capture(oracle.TINY)
-    m, c = schmidl_cox.sc_metric(oracle.t(cap), oracle.TINY.M)
+    m, c = schmidl_cox.sc_metric(oracle.t(cap), oracle.PTINY.M)
     jm, jc = jsc.sc_metric(jnp.asarray(cap), oracle.TINY.M)
     np.testing.assert_allclose(oracle.n(c), np.asarray(jc), rtol=0,
                                atol=1e-5)
@@ -83,7 +83,7 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_synchronize_matches_jax_coarse(case):
     cap = CASES[case]()
-    got = schmidl_cox.synchronize(oracle.t(cap), oracle.TINY)
+    got = schmidl_cox.synchronize(oracle.t(cap), oracle.PTINY)
     ref = jsc.synchronize(jnp.asarray(cap), oracle.TINY, impl="coarse")
     _assert_sync_equal(got, ref)
     assert bool(got.synced) == (case != "noise_only")
@@ -93,8 +93,8 @@ def test_full_scan_and_quorum_match_jax():
     cap, _ = oracle.jax_capture(oracle.TINY)
     x = oracle.t(cap)
     _assert_sync_equal(
-        schmidl_cox._synchronize_full(x, oracle.TINY, 1 << 15),
+        schmidl_cox._synchronize_full(x, oracle.PTINY, 1 << 15),
         jsc.synchronize(jnp.asarray(cap), oracle.TINY, impl="xla"))
     cfg = oracle.TINY.replace(bit_exact=False, sync_quorum=1)
-    _assert_sync_equal(schmidl_cox.synchronize(x, cfg),
+    _assert_sync_equal(schmidl_cox.synchronize(x, oracle.pcfg(cfg)),
                        jsc.synchronize(jnp.asarray(cap), cfg, impl="coarse"))

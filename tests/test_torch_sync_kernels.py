@@ -110,7 +110,7 @@ def capture(request):
 @pytest.mark.parametrize("impl", schmidl_cox.IMPLS)
 def test_synchronize_impls_match_jax(capture, impl, keep_metric):
     cfg, cap = capture
-    got = schmidl_cox.synchronize(oracle.t(cap), cfg, impl=impl,
+    got = schmidl_cox.synchronize(oracle.t(cap), oracle.pcfg(cfg), impl=impl,
                                   keep_metric=keep_metric)
     ref = jsc.synchronize(jnp.asarray(cap), cfg, impl=impl,
                           keep_metric=keep_metric)
@@ -139,7 +139,7 @@ def test_synchronize_impls_match_jax(capture, impl, keep_metric):
 def test_synchronize_quorum_and_impl_names():
     cap, _ = oracle.jax_capture(oracle.TINY)
     x = oracle.t(cap)
-    cfg = oracle.TINY.replace(bit_exact=False, sync_quorum=1)
+    cfg = oracle.PTINY.replace(bit_exact=False, sync_quorum=1)
     before = k5.sc_sync_fused.launches
     quorum = schmidl_cox.synchronize(x, cfg, impl="pallas")  # -> coarse
     assert k5.sc_sync_fused.launches == before
@@ -148,7 +148,7 @@ def test_synchronize_quorum_and_impl_names():
         assert (a is None and b is None) or torch.equal(a, b)
     for bad in ("auto", "coarse128", "xla_pad"):
         with pytest.raises(ValueError, match="impl"):
-            schmidl_cox.synchronize(x, oracle.TINY, impl=bad)
+            schmidl_cox.synchronize(x, oracle.PTINY, impl=bad)
 
 
 def test_library_path_covers_the_shared_header(monkeypatch, tmp_path):

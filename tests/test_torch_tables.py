@@ -13,8 +13,14 @@ from rub_mimo_tpu.ofdm import constellation as jconst
 from rub_mimo_tpu.ofdm import lfsr as jlfsr
 from rub_mimo_tpu.ofdm import preamble as jpre
 from rub_mimo_tpu.ofdm import sctype as jsct
+from rub_mimo_tpu_torch import Modulation as PModulation
 from rub_mimo_tpu_torch.ofdm import constellation, lfsr, preamble, sctype
 import torch_oracle as oracle
+
+
+def pmod(mod: Modulation) -> PModulation:
+    """The port's Modulation of the same value."""
+    return PModulation(mod.value)
 
 
 @pytest.mark.parametrize("M,use_all,add_null", [
@@ -28,6 +34,9 @@ def test_sctype_allocation_equal(M, use_all, add_null):
                                    add_null_carriers=add_null)
     np.testing.assert_array_equal(ours, ref)
     assert sctype.m_occupied(cfg) == cfg.M_occupied
+    assert oracle.pcfg(cfg).M_occupied == cfg.M_occupied
+    np.testing.assert_array_equal(oracle.pcfg(cfg).subcarrier_allocation(),
+                                  ref)
     np.testing.assert_array_equal(sctype.occupied_indices(ours),
                                   jsct.occupied_indices(ref))
     assert sctype.validate_sctype(ours) == jsct.validate_sctype(ref)
@@ -52,7 +61,7 @@ def test_lfsr_streams_equal():
     tiny_config(use_all_carriers=False), oracle.MID],
     ids=["tiny", "tiny4x4", "s1qpsk", "guard", "mid"])
 def test_preamble_tables_equal(cfg):
-    ours, ref = preamble.tables(cfg), jpre.tables(cfg)
+    ours, ref = preamble.tables(oracle.pcfg(cfg)), jpre.tables(cfg)
     for field in ("S0", "s0", "S1", "s1", "s0_unnormalized",
                   "s1_unnormalized"):
         a, b = getattr(ours, field), getattr(ref, field)
@@ -63,7 +72,8 @@ def test_preamble_tables_equal(cfg):
 
 @pytest.mark.parametrize("mod", list(Modulation))
 def test_constellation_table_equal(mod):
-    np.testing.assert_array_equal(constellation.table(mod), jconst.table(mod))
+    np.testing.assert_array_equal(constellation.table(pmod(mod)),
+                                  jconst.table(mod))
 
 
 def test_arb32opt_override_equal():
@@ -73,14 +83,14 @@ def test_arb32opt_override_equal():
         constellation.set_arb32opt_table(pts)
         jconst.set_arb32opt_table(pts)
         np.testing.assert_array_equal(
-            constellation.table(Modulation.ARB32OPT),
+            constellation.table(PModulation.ARB32OPT),
             jconst.table(Modulation.ARB32OPT))
         np.testing.assert_array_equal(
-            constellation.table(Modulation.ARB32OPT), pts)
+            constellation.table(PModulation.ARB32OPT), pts)
     finally:
         constellation.set_arb32opt_table(None)
         jconst.set_arb32opt_table(None)
-    np.testing.assert_array_equal(constellation.table(Modulation.ARB32OPT),
+    np.testing.assert_array_equal(constellation.table(PModulation.ARB32OPT),
                                   jconst.table(Modulation.ARB32OPT))
 
 
@@ -90,11 +100,11 @@ def test_modulate_demodulate_match_jax(mod):
     rng = np.random.default_rng(11)
     sym = rng.integers(0, mod.arity, size=(2, 500)).astype(np.int32)
     np.testing.assert_array_equal(
-        oracle.n(constellation.modulate(torch.as_tensor(sym), mod)),
+        oracle.n(constellation.modulate(torch.as_tensor(sym), pmod(mod))),
         np.asarray(jconst.modulate(jnp.asarray(sym), mod)))
     y = ((rng.standard_normal((3, 400)) + 1j * rng.standard_normal((3, 400)))
          * 0.8).astype(np.complex64)
-    got = oracle.n(constellation.demodulate(torch.as_tensor(y), mod))
+    got = oracle.n(constellation.demodulate(torch.as_tensor(y), pmod(mod)))
     ref = np.asarray(jconst.demodulate(jnp.asarray(y), mod))
     assert got.dtype == np.int32 and got.shape == y.shape
     np.testing.assert_array_equal(got, ref)

@@ -26,26 +26,34 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("cfg", CFGS, ids=IDS)
 def test_sync_words_and_payload_symbols_equal(cfg):
-    np.testing.assert_array_equal(framegen.write_sync_words(cfg),
+    pcfg = oracle.pcfg(cfg)
+    np.testing.assert_array_equal(framegen.write_sync_words(pcfg),
                                   jfg.write_sync_words(cfg))
-    np.testing.assert_array_equal(framegen.generate_payload_symbols(cfg, 5),
+    np.testing.assert_array_equal(framegen.generate_payload_symbols(pcfg, 5),
                                   jfg.generate_payload_symbols(cfg, 5))
 
 
 @pytest.mark.parametrize("cfg", CFGS, ids=IDS)
 def test_transmit_frame_matches_jax(cfg):
     tx_data = jfg.generate_payload_symbols(cfg, seed=2)
-    ours = oracle.n(framegen.transmit_frame(cfg, tx_data, device="cpu"))
+    ours = oracle.n(framegen.transmit_frame(oracle.pcfg(cfg), tx_data,
+                                            device="cpu"))
     ref = np.asarray(jfg.transmit_frame(cfg, jnp.asarray(tx_data)))
     assert ours.shape == ref.shape and ours.dtype == np.complex64
     assert _rel(ours, ref) < 1e-5
 
 
 def test_transmit_frame_rejects_unported_modes():
+    """Every mode transmits now; precoded TX is not ported yet, and a
+    JAX package config is refused."""
     cfg = oracle.TINY.replace(mode=CommMode.SISO)
-    with pytest.raises(NotImplementedError):
-        framegen.transmit_frame(
-            cfg, framegen.generate_payload_symbols(cfg), device="cpu")
+    tx_data = jfg.generate_payload_symbols(cfg)
+    precoder = np.ones((cfg.M, 2, 2), np.complex64)
+    with pytest.raises(NotImplementedError, match="precoded"):
+        framegen.transmit_frame(oracle.pcfg(cfg), tx_data, device="cpu",
+                                precoder=precoder)
+    with pytest.raises(TypeError, match="config_from_jax"):
+        framegen.transmit_frame(cfg, tx_data, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(flat=False, num_taps=5),
@@ -74,7 +82,7 @@ def test_apply_channel_noise_free_matches_jax(kw):
 
 
 def test_simulate_capture_noise_is_seeded_at_the_requested_snr():
-    cfg = oracle.TINY
+    cfg = oracle.PTINY
     spec = simulator.ChannelSpec(snr_db=20.0, delay=100, seed=5)
     a, tx_data, h = simulator.simulate_capture(cfg, spec, device="cpu")
     b, _, _ = simulator.simulate_capture(cfg, spec, device="cpu")

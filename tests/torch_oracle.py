@@ -14,13 +14,25 @@ import pytest
 import torch
 
 from rub_mimo_tpu.config import ModemConfig, tiny_config
+from rub_mimo_tpu_torch import convert
 
 # one thread per test worker: the suite runs under pytest-xdist
 torch.set_num_threads(1)
 
-# the two sizes the tier-1 parity tests run at
+# the two sizes the tier-1 parity tests run at (JAX package configs)
 TINY = tiny_config()                              # M=64, bit_exact (per-code)
 MID = ModemConfig(pid_max=12, bit_exact=False)    # M=2048, joint timing
+
+
+def pcfg(jcfg):
+    """The port's ModemConfig equal to a JAX package config (the port's
+    entry points refuse the JAX one)."""
+    return convert.config_from_jax(jcfg)
+
+
+# their twins in the port's own config type
+PTINY = pcfg(TINY)
+PMID = pcfg(MID)
 
 
 def jax_capture(cfg: ModemConfig, *, snr_db=35.0, delay=300, seed=3,
