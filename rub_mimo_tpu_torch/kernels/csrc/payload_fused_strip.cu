@@ -107,7 +107,8 @@ cudaError_t launch(const float* p_re, const float* p_im, long long plane_len,
 // twiddle: [M/2] complex64, exp(-2 pi i j / M)
 // rx_data: [S, n_sym, M] int32; rx_sig: [S, n_sym, M] complex64 or null
 // Requires M a power of two in [64, 4096], 1 <= S <= 4, n_sym >= 1,
-// plane_len >= n_sym * sym, sym == M + cp.  Returns a cudaError_t.
+// plane_len >= n_sym * sym, sym >= M + cp (a pitch above M + cp skips the
+// samples between symbols).  Returns a cudaError_t.
 extern "C" int payload_fused_strip(
     const float* p_re, const float* p_im, long long plane_len,
     const float2* W, const float* gain, const float* points, int n_points,
@@ -115,7 +116,7 @@ extern "C" int payload_fused_strip(
     int n_sym, int sym, int cp, int* rx_data, float2* rx_sig,
     void* stream) {
   if (n_points < 1 || n_points > kMaxPoints || n_sym < 1 ||
-      M != (1 << log2M) || M < 64 || M > 4096 || sym != M + cp) {
+      M != (1 << log2M) || M < 64 || M > 4096 || cp < 0 || sym < M + cp) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -45,13 +46,15 @@ def payload_tail_reference(p_re: torch.Tensor, p_im: torch.Tensor,
                            W: torch.Tensor, gain: torch.Tensor,
                            table: np.ndarray, dft_norm: float, *,
                            n_sym: int, symbol_len: int, cp_len: int,
-                           emit_sig: bool = True):
-    """Plain PyTorch payload tail: reshape-strip the CPs, torch.fft.fft,
-    scale by dft_norm, detect.zf.equalize, hard demap over ``table``.
-    Same arguments and results as ``payload_fused_strip``."""
+                           M: Optional[int] = None, emit_sig: bool = True):
+    """Plain PyTorch payload tail: reshape-strip the CPs (the M samples
+    after each CP), torch.fft.fft, scale by dft_norm, detect.zf.equalize,
+    hard demap over ``table``.  Same arguments and results as
+    ``payload_fused_strip``."""
     S = p_re.shape[0]
+    M = symbol_len - cp_len if M is None else M
     x = torch.complex(p_re, p_im)[:, : n_sym * symbol_len]
-    x = x.reshape(S, n_sym, symbol_len)[:, :, cp_len:]
+    x = x.reshape(S, n_sym, symbol_len)[:, :, cp_len:cp_len + M]
     X = torch.fft.fft(x, dim=-1) * float(dft_norm)
     eq = zf.equalize(X.transpose(0, 1), W, gain).transpose(0, 1)
     rx_data = constellation.hard_demap(eq, table)
@@ -91,9 +94,9 @@ def _twiddles(M: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(tw, device=device)
 
 
-def _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len):
+def _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len, M=None):
     S = p_re.shape[0]
-    M = symbol_len - cp_len
+    M = symbol_len - cp_len if M is None else M
     for name, t, dt, shape in (
         ("p_re", p_re, torch.float32, (S, n_sym * symbol_len)),
         ("p_im", p_im, torch.float32, (S, n_sym * symbol_len)),
@@ -107,8 +110,10 @@ def _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len):
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if n_sym < 1 or cp_len < 0:
-        raise ValueError("need n_sym >= 1 and cp_len >= 0")
+    if n_sym < 1 or cp_len < 0 or symbol_len < M + cp_len:
+        raise ValueError("need n_sym >= 1, cp_len >= 0 and symbol_len >= "
+                         f"M + cp_len, got {n_sym}, {cp_len}, {symbol_len}, "
+                         f"M={M}")
     if not strip_supported(M, S, len(table)):
         raise ValueError(
             f"payload_fused_strip kernel does not take M={M}, S={S}, "
@@ -119,13 +124,16 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
                         W: torch.Tensor, gain: torch.Tensor,
                         table: np.ndarray, dft_norm: float, *,
                         n_sym: int, symbol_len: int, cp_len: int,
-                        emit_sig: bool = True):
+                        M: Optional[int] = None, emit_sig: bool = True):
     """Payload tail over the flat payload planes.
 
     p_re, p_im: [S, n_sym*symbol_len] float32, CPs in place (what
     pipeline.rx.extract_payload gives); W: [M, out, rx] complex64;
     gain: [M] float32; table: constellation points (numpy);
-    dft_norm: 1/sqrt(M_occupied).
+    dft_norm: 1/sqrt(M_occupied).  Symbol k's M samples start at
+    k*symbol_len + cp_len; M defaults to symbol_len - cp_len, and a
+    larger pitch (symbol_len > M + cp_len) skips the samples between
+    symbols (the sharded decode's stripe of every n_sc-th symbol).
 
     Returns (rx_sig [S, n_sym, M] complex64 | None, rx_data [S, n_sym, M]
     int32), natural order, with
@@ -138,13 +146,13 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
     if p_re.device.type == "cpu":
         return payload_tail_reference(
             p_re, p_im, W, gain, table, dft_norm, n_sym=n_sym,
-            symbol_len=symbol_len, cp_len=cp_len, emit_sig=emit_sig)
+            symbol_len=symbol_len, cp_len=cp_len, M=M, emit_sig=emit_sig)
     if p_re.device.type != "cuda":
         raise ValueError(f"payload_fused_strip: no kernel for {p_re.device}")
-    _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len)
+    M = symbol_len - cp_len if M is None else M
+    _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len, M)
     dev = p_re.device
     S = p_re.shape[0]
-    M = symbol_len - cp_len
     fn = _kernel_fn()
     points = device_points(table, dev)
     twiddle = _twiddles(M, dev)

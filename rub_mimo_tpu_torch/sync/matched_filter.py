@@ -57,12 +57,36 @@ def _template_fft_conj(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(tf.astype(np.complex64), device=device)
 
 
-def corr_vals(window: torch.Tensor, cfg: ModemConfig) -> torch.Tensor:
-    """Correlation magnitudes [streams, n_seq, symbol_len]: |corr|^2/M^2 of
-    template q at window offsets q*symbol_len + i, i in [0, symbol_len).
+@functools.lru_cache(maxsize=32)
+def template_chunk(cfg: ModemConfig, start: int, length: int,
+                   device: torch.device):
+    """Rows [start, start + length) of the template set, as ``corr_vals``
+    takes a chunk: (conj template FFTs [length, L], base offsets [length]
+    = sequence index * symbol_len).  Rows past the last sequence are zero
+    templates at base 0 (the padding of an uneven split)."""
+    full = _template_fft_conj(cfg, device)
+    n_seq = full.shape[0]
+    rows = torch.zeros((length, full.shape[1]), dtype=full.dtype,
+                       device=device)
+    real = max(0, min(n_seq - start, length))
+    rows[:real] = full[start:start + real]
+    base = torch.zeros((length,), dtype=torch.int64, device=device)
+    base[:real] = torch.arange(start, start + real, device=device) \
+        * cfg.symbol_len
+    return rows, base
+
+
+def corr_vals(window: torch.Tensor, cfg: ModemConfig,
+              tmpl_fft: Optional[torch.Tensor] = None,
+              seq_base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Correlation magnitudes [streams, n_tmpl, symbol_len]: |corr|^2/M^2 of
+    template q at window offsets seq_base[q] + i, i in [0, symbol_len).
 
     window: [streams, W] complex, the estimation region (zero-extended to
-    symbol_len*n_seq + M when shorter)."""
+    symbol_len*n_seq + M when shorter).  By default every template, row q
+    at base q*symbol_len; a chunk of them (``template_chunk``: their conj
+    FFTs and bases) gives those rows alone, each the same as in the full
+    set (the sharded decode splits the templates over its "sc" axis)."""
     sym = cfg.symbol_len
     M = cfg.M
     n_seq = 1 + cfg.num_access_codes * cfg.num_streams
@@ -71,8 +95,13 @@ def corr_vals(window: torch.Tensor, cfg: ModemConfig) -> torch.Tensor:
     w = window[:, :region_len]
     if w.shape[1] < region_len:
         w = torch.nn.functional.pad(w, (0, region_len - w.shape[1]))
-    wins = w.unfold(-1, Lw, sym)  # [S, n_seq, Lw]: lane q starts at q*sym
-    Tfc = _template_fft_conj(cfg, window.device)
+    if tmpl_fft is None:
+        wins = w.unfold(-1, Lw, sym)  # [S, n_seq, Lw]: lane q at q*sym
+        Tfc = _template_fft_conj(cfg, window.device)
+    else:
+        idx = seq_base.unsqueeze(1) + torch.arange(Lw, device=w.device)
+        wins = w[:, idx]  # [S, n_tmpl, Lw]
+        Tfc = tmpl_fft
     Wf = torch.fft.fft(wins, n=Tfc.shape[-1], dim=-1)
     # i + n < sym + M = Lw <= L: the circular lags never wrap
     corr = torch.fft.ifft(Wf * Tfc, dim=-1)[..., :sym]

@@ -58,6 +58,13 @@ def sc_metric(x: torch.Tensor, M: int, *, block: int = 1 << 15):
     return k6.metric_from(corr, energy), corr
 
 
+def _metric_from_slice(win: torch.Tensor, M: int):
+    """Exact metric and corr of a capture slice that holds its own M-1
+    samples of left context: valid from index M-1 on (from 0 when the
+    slice starts at the capture's first sample)."""
+    return sc_metric(win, M, block=win.shape[-1])
+
+
 def sync_index_from(starts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """floor-mean of the participating streams' run starts (the
     reference's all-streams mean, framing.cc:616, for a full mask)."""

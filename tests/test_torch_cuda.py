@@ -1,8 +1,10 @@
 """The port on an NVIDIA GPU: the CUDA kernels (K1 strip-fused payload
 tail, K2 fused payload tail, K3 equalize + demap, K4 hard demap, K5
-one-pass sync, K6 S&C metric, K7 CP strip) against their plain PyTorch
-versions, and the decode on the card against the decode on the CPU, on
-every payload tail and mode, with the launch counts of each path.  Every
+one-pass sync, K6 S&C metric, K7 CP strip, K8 halo exchange) against
+their plain PyTorch versions, the decode on the card against the decode
+on the CPU, on every payload tail and mode, and the sharded decode on
+one-card meshes against the single-device decode, with the launch counts
+of each path.  Every
 test here is marked ``cuda`` and skips without a GPU.
 
 This file imports neither jax nor the JAX package, so it also runs where
@@ -21,10 +23,13 @@ from rub_mimo_tpu_torch.detect import zf
 from rub_mimo_tpu_torch.io import simulator
 from rub_mimo_tpu_torch.kernels import cp_strip as k7
 from rub_mimo_tpu_torch.kernels import eq_demap as k34
+from rub_mimo_tpu_torch.kernels import halo_dma as k8
 from rub_mimo_tpu_torch.kernels import payload_fused as pf
 from rub_mimo_tpu_torch.kernels import sc_metric as k6
 from rub_mimo_tpu_torch.kernels import sc_sync as k5
 from rub_mimo_tpu_torch.ofdm import constellation
+from rub_mimo_tpu_torch.parallel import decode_sharded as ds
+from rub_mimo_tpu_torch.parallel import mesh as pmesh
 from rub_mimo_tpu_torch.pipeline import report, rx
 from rub_mimo_tpu_torch.utils import movsum
 
@@ -487,3 +492,101 @@ def test_generic_tail_decodes_on_card_match_cpu(cfg, case):
     assert (on_card.Y is None) == (cfg.detector != Detector.ML)
     ser = report.score(on_card, tx, cfg).symbol_error_rate
     assert ser == [0.0] * len(ser)
+
+
+@pytest.mark.parametrize("M,cp,n_sym,pitch", [(2048, 152, 7, 4400),
+                                              (64, 16, 9, 160)])
+def test_kernel_with_pitch_matches_plain_tail(M, cp, n_sym, pitch):
+    """K1 with a symbol pitch above M + cp (the sharded decode's stripe
+    of every n_sc-th symbol)."""
+    dev = require_cuda()
+    args, _ = _tail_case(dev, M, cp, n_sym * pitch // (M + cp) + 1)
+    p_re, p_im = (p[:, :n_sym * pitch].contiguous() for p in args[:2])
+    args = (p_re, p_im) + args[2:]
+    kw = dict(n_sym=n_sym, symbol_len=pitch, cp_len=cp, M=M)
+    sig, data = pf.payload_fused_strip(*args, **kw)
+    ref_sig, ref_data = pf.payload_tail_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert data.shape == (2, n_sym, M)
+    assert_decisions_match(data, ref_data, ref_sig, args[4])
+    rms = float(torch.sqrt(torch.mean(ref_sig.abs() ** 2)))
+    assert float((sig - ref_sig).abs().max()) <= 1e-4 * rms
+
+
+@pytest.mark.parametrize("shape,H", [((2, 1), 129), ((4, 1), 129),
+                                     ((8, 1), 129), ((4, 2), 129),
+                                     ((4, 1), 2047)])
+def test_halo_kernel_matches_plain(shape, H):
+    dev = require_cuda()
+    n_time, n_sc = shape
+    m = pmesh.make_mesh(n_time, n_sc, devices=[dev] * (n_time * n_sc))
+    rng = np.random.default_rng(H + n_time + n_sc)
+    blocks = [[torch.as_tensor(
+        (rng.standard_normal((2, 3 * H)) + 1j * rng.standard_normal(
+            (2, 3 * H))).astype(np.complex64), device=dev)
+        for _ in range(n_sc)] for _ in range(n_time)]
+    for parts in ([[b[:, -H:] for b in row] for row in blocks],  # strided
+                  [[b[:, :H].contiguous() for b in row] for row in blocks]):
+        before = k8.ring_shift_right.launches
+        got = k8.ring_shift_right(parts, m)
+        ref = k8.ring_shift_right_reference(parts, m)
+        torch.cuda.synchronize()
+        assert k8.ring_shift_right.launches == before + 1
+        for t in range(n_time):
+            for s in range(n_sc):
+                assert got[t][s].is_cuda
+                assert torch.equal(got[t][s], ref[t][s]), (t, s)
+
+
+def test_halo_kernel_rejects_what_it_cannot_take():
+    dev = require_cuda()
+    m = pmesh.make_mesh(2, 1, devices=[dev] * 2)
+    x = torch.zeros((2, 8), dtype=torch.complex64, device=dev)
+    for parts in ([[x.to(torch.complex128)], [x.to(torch.complex128)]],
+                  [[x], [x[:, :4]]],
+                  [[x.t()], [x.t()]],
+                  [[x], [x.cpu()]]):
+        with pytest.raises(ValueError):
+            k8.ring_shift_right(parts, m)
+    big = pmesh.make_mesh(65, 1, devices=[dev] * 65)
+    with pytest.raises(ValueError, match="at most"):
+        k8.ring_shift_right([[x]] * 65, big)
+
+
+def test_make_mesh_takes_the_cuda_devices():
+    require_cuda()
+    m = pmesh.make_mesh()
+    assert m.devices.size == torch.cuda.device_count()
+    assert all(d.type == "cuda" for d in m.devices.flat)
+
+
+# (halo_impl, mesh shape, launches of K1, K8, K6 per decode)
+SHARDED_CASES = {
+    "ppermute_4x1": ("ppermute", (4, 1), (4, 0, 0)),
+    "pallas_dma_4x1": ("pallas_dma", (4, 1), (4, 1, 1)),
+    "ppermute_2x2": ("ppermute", (2, 2), (4, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(SHARDED_CASES))
+def test_sharded_decode_on_card_matches_single_device(case):
+    dev = require_cuda()
+    halo_impl, shape, want = SHARDED_CASES[case]
+    cap = _capture(MID, delay=3000, seed=3)
+    single = rx.make_decoder(MID, device=dev)(cap)
+    m = pmesh.make_mesh(*shape, devices=[dev] * 4)
+    re, im = pmesh.shard_capture_planes(cap, m)
+    dec = ds.build_sharded_decoder(MID, m, shape[0] * re[0][0].shape[1],
+                                   halo_impl=halo_impl,
+                                   input_format="planes")
+    counts = (pf.payload_fused_strip, k8.ring_shift_right, k6.sc_metric_fused)
+    before = [c.launches for c in counts]
+    got = dec(re, im)
+    torch.cuda.synchronize()
+    assert tuple(c.launches - b for c, b in zip(counts, before)) == want
+    for f in ("synced", "sync_index", "sync_sample", "decode_start"):
+        assert int(getattr(got, f)) == int(getattr(single, f)), f
+    assert got.rx_data.is_cuda and got.G.is_cuda
+    np.testing.assert_allclose(n(got.G), n(single.G), rtol=2e-4, atol=2e-5)
+    assert_decisions_match(got.rx_data, single.rx_data, single.rx_sig,
+                           constellation.table(MID.modulation))
