@@ -8,11 +8,13 @@ Builds the port's CUDA kernels from the sources in this checkout (K1 the
 strip-fused payload tail, K2 the fused payload tail, K3 equalize +
 demap, K4 the hard demap, K5 the one-pass sync, K6 the S&C metric, K7
 the CP strip, K8 the halo exchange; one nvcc per source, all at once)
-and holds each against its plain PyTorch version: K1 on seeded random
-payloads, K6 on a seeded random capture and the operating-point
-capture, K5 on six captures (the operating point, the earliest fire at
-full width and at M=64, a fire in the last tile, noise only, 10^5
-leading zeros), K7 on complex64 and float32 payloads (bit for bit), K4
+and holds each against its plain PyTorch version: K1 and K2 on seeded
+random payloads (the operating point, one frame per block, M = 64 and
+4096, an odd CP with an unaligned plane, 3 and 4 streams, 2 to 64
+points; the persistent grids printed), K6 on a seeded random capture
+and the operating-point capture, K5 on six captures (the operating
+point, the earliest fire at full width and at M=64, a fire in the last
+tile, noise only, 10^5 leading zeros), K7 on complex64 and float32 payloads (bit for bit), K4
 at three widths and point counts and on the symbols the "xla" decode
 hands it, K3 and K2 on seeded random symbols, K8 bit for bit on seeded
 random halos of four one-card meshes and on the operating point's own
@@ -36,12 +38,14 @@ to 0 just before a path runs and read just after.  It decodes the
 checked-in golden capture, times the decodes and the kernels with CUDA
 events, and breaks the default decode down by stage (CUDA events per
 stage, torch.profiler for the device's busy time), and times each
-payload_impl's whole tail (strip to decisions) on the card.  Each phase
-prints one
-JSON line; any failed check raises, so the exit code is non-zero.  The
-line before the last lists every kernel with its launches on its path,
-its error against its plain version, its time, the plain version's time,
-its bound on this card and, where one PyTorch call computes the same
+payload_impl's whole tail (strip to decisions) on the card, and K1 and
+K2 warm and after a 256 MB write evicts the L2, K1 at one (4, 1)
+shard's call, and K1 with 2 to 64 demap points, with the SM clock under
+load.  Each phase prints one JSON line; any failed check raises,
+so the exit code is non-zero.  The line before the last lists every
+kernel with its launches on its path, its error against its plain
+version, its time, the plain version's time, its bound on this card, its
+share of that bound and, where one PyTorch call computes the same
 function, that call's time.  The last line is the device summary
 {"ok": true, "device": {...}}.  There is no CPU path: without a CUDA
 device the script exits non-zero before printing anything.
@@ -78,6 +82,7 @@ MODE_ITERS = 10      # timing runs of each generic-tail decode
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+L2_FLUSH_BYTES = 256 << 20  # written before a cold call: 5x the 50 MB L2
 
 # kernel -> (module in rub_mimo_tpu_torch.kernels, wrapper, CUDA source,
 # the TPU kernel it replaces)
@@ -174,6 +179,52 @@ def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: int = 3) -> dict:
     return {"median_ms": statistics.median(dev_ms),
             "min_ms": min(dev_ms), "max_ms": max(dev_ms),
             "wall_median_ms": statistics.median(wall_ms)}
+
+
+def event_ms(fn, flush=None, iters: int = TIMING_ITERS) -> float:
+    """Median CUDA-event ms of one fn() call, warm (L2 holds what the
+    last call touched) or cold (flush() first).  A queued ~1 ms sleep
+    puts the host ahead of the device, so the events bracket the
+    kernel's device time and not the host's launch work."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def clocks_under_load(fn, seconds: float = 1.0) -> dict:
+    """Median SM clock (MHz) and power draw (W) that nvidia-smi samples
+    every 50 ms while fn() runs back to back."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=10)
+    # the first samples precede the load
+    rows = [ln.split(",") for ln in out.strip().splitlines()[2:] if ln]
+    if not rows:
+        return {"sm_clock_mhz": None, "power_w": None}
+    return {"sm_clock_mhz": statistics.median(float(r[0]) for r in rows),
+            "power_w": statistics.median(float(r[1]) for r in rows)}
 
 
 def stage_times(cfg, re: torch.Tensor, im: torch.Tensor, sync_index: int
@@ -548,15 +599,26 @@ def main() -> None:
                            if "registers" in ln or "spill" in ln]
                     for name, lib in zip(sources, libs)}})
 
-    # ---- phase 2: K1 vs plain on seeded random inputs ----
+    # ---- phase 2: K1 (and K2 on its stripped rows) vs plain ----
+    # seeded random inputs: the operating point first, then the block's
+    # other paths: one frame per block, M = 64 and 4096, an odd CP and an
+    # unaligned plane (4-byte copies), 4 streams (one-stage block), and
+    # 2, 16 and 64 points
     table = constellation.table(Modulation.ARB32OPT)
     main_cmp = None
-    for M, cp, n_sym in ((2048, 152, 1000), (2048, 152, 13), (64, 16, 8)):
+    for S, M, cp, n_sym, offset, mod in (
+            (2, 2048, 152, 1000, 0, Modulation.ARB32OPT),
+            (2, 2048, 152, 13, 0, Modulation.ARB32OPT),
+            (2, 64, 16, 8, 0, Modulation.ARB32OPT),
+            (2, 4096, 288, 40, 0, Modulation.QAM64),
+            (2, 2048, 151, 50, 1, Modulation.BPSK),
+            (4, 2048, 152, 100, 0, Modulation.QAM16),
+            (3, 1024, 72, 30, 2, Modulation.QPSK)):
         rng = np.random.default_rng(M + n_sym)
-        S, sym = 2, M + cp
-        p = torch.as_tensor(
-            rng.standard_normal((2, S, n_sym * sym)).astype(np.float32),
-            device=dev)
+        sym, tab_c = M + cp, constellation.table(mod)
+        buf = torch.as_tensor(rng.standard_normal(
+            2 * S * n_sym * sym + offset).astype(np.float32), device=dev)
+        p = buf[offset:].view(2, S, n_sym * sym)  # offset: 4-byte copies
         G = ((rng.standard_normal((M, S, S))
               + 1j * rng.standard_normal((M, S, S))) / np.sqrt(2)
              + 2.0 * np.eye(S))  # diagonally dominant: well conditioned
@@ -564,16 +626,36 @@ def main() -> None:
                                             device=dev))
         norm = np.float32(1.0 / np.sqrt(M))
         kw = dict(n_sym=n_sym, symbol_len=sym, cp_len=cp)
-        sig, data = pf.payload_fused_strip(p[0], p[1], W, gain, table, norm,
+        sig, data = pf.payload_fused_strip(p[0], p[1], W, gain, tab_c, norm,
                                            **kw)
         ref_sig, ref_data = pf.payload_tail_reference(
-            p[0], p[1], W, gain, table, norm, **kw)
+            p[0], p[1], W, gain, tab_c, norm, **kw)
         torch.cuda.synchronize()
-        res = compare(sig, data, ref_sig, ref_data, table)
-        emit({"phase": "kernel_vs_plain", "M": M, "cp": cp, "n_sym": n_sym,
+        res = compare(sig, data, ref_sig, ref_data, tab_c)
+        emit({"phase": "kernel_vs_plain", "S": S, "M": M, "cp": cp,
+              "n_sym": n_sym, "plane_offset": offset, "points": len(tab_c),
               **res})
         if main_cmp is None:
             main_cmp = res
+        else:  # K2 on the same symbols, CP-stripped
+            x = k7.cp_strip_reference(torch.complex(p[0], p[1]), n_sym, sym,
+                                      cp)
+            res2 = compare(*pf.payload_fused(x, W, gain, tab_c, norm),
+                           *pf.payload_fused_reference(x, W, gain, tab_c,
+                                                       norm), tab_c)
+            emit({"phase": "k2_vs_plain", "S": S, "M": M, "n_sym": n_sym,
+                  "points": len(tab_c), **res2})
+    # the persistent grids: the operating point, one (4, 1) shard's 263
+    # frames, and 4 streams (one-stage blocks)
+    geometry = {
+        "payload_fused_strip": pf.launch_geometry(
+            "payload_fused_strip", 2, 2048, 1000),
+        "payload_fused": pf.launch_geometry("payload_fused", 2, 2048, 1000),
+        "payload_fused_strip_shard_4x1": pf.launch_geometry(
+            "payload_fused_strip", 2, 2048, 263),
+        "payload_fused_strip_4_streams": pf.launch_geometry(
+            "payload_fused_strip", 4, 2048, 1000)}
+    emit({"phase": "k1_k2_geometry", **geometry})
 
     # ---- the reference operating point's capture ----
     cfg = ModemConfig(pid_max=1000, bit_exact=False)
@@ -1069,6 +1151,64 @@ def main() -> None:
                     "event_ms": cuda_ms(f)["median_ms"]}
              for impl, f in tails.items()}})
 
+    # ---- phase 12c: K1 and K2 warm and cold, and K1 on one shard ----
+    # CUDA events around single calls, cold after a 256 MB write evicts
+    # the L2; K1 also at one (4, 1) shard's call: 263 frames of the
+    # operating point's pitch (the sharded stage C's shape)
+    junk = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():
+        junk.fill_(1.0)
+
+    t_loc = -(-T // (4 * 128)) * 128  # one (4, 1) shard's samples
+    n_shard = -(-t_loc // sym) + 1     # the symbol slots it can own
+    rng = np.random.default_rng(263)
+    p_sh = torch.as_tensor(rng.standard_normal(
+        (2, S, n_shard * sym)).astype(np.float32), device=dev)
+    kw_sh = dict(n_sym=n_shard, symbol_len=sym, cp_len=cfg.cp_len)
+
+    def k1_shard():
+        return pf.payload_fused_strip(p_sh[0], p_sh[1], r.W, r.normalize_gain,
+                                      tab, norm, **kw_sh)
+
+    sh_cmp = compare(*k1_shard(), *pf.payload_tail_reference(
+        p_sh[0], p_sh[1], r.W, r.normalize_gain, tab, norm, **kw_sh), tab)
+    k12 = {
+        "payload_fused_strip": {
+            "warm_ms": event_ms(calls["payload_fused_strip"][0]),
+            "cold_l2_ms": event_ms(calls["payload_fused_strip"][0], flush)},
+        "payload_fused": {
+            "warm_ms": event_ms(calls["payload_fused"][0]),
+            "cold_l2_ms": event_ms(calls["payload_fused"][0], flush)},
+        "payload_fused_strip_shard_4x1": {
+            "n_sym": n_shard, "warm_ms": event_ms(k1_shard),
+            "cold_l2_ms": event_ms(k1_shard, flush),
+            "device_ms": device_busy(k1_shard, n=10)["busy_ms"],
+            "mismatches": sh_cmp["mismatches"],
+            "rel_err": sh_cmp["rel_err"]}}
+    del junk
+    # the demap's cost per point: K1 on the operating point's payload
+    # with 2 to 64 points (the decisions held to the plain version's),
+    # and the SM clock while K1 runs back to back
+    sweep = {}
+    for mod in (Modulation.BPSK, Modulation.QPSK, Modulation.QAM16,
+                Modulation.ARB32OPT, Modulation.QAM64):
+        tab_m = constellation.table(mod)
+
+        def k1_mod(tab_m=tab_m):
+            return pf.payload_fused_strip(p_re, p_im, r.W, r.normalize_gain,
+                                          tab_m, norm, **kw)
+
+        m_cmp = compare(*k1_mod(), *pf.payload_tail_reference(
+            p_re, p_im, r.W, r.normalize_gain, tab_m, norm, **kw), tab_m)
+        sweep[mod.name] = {"points": len(tab_m), "warm_ms": event_ms(k1_mod),
+                           "mismatches": m_cmp["mismatches"]}
+    k12["payload_fused_strip_by_modulation"] = sweep
+    k12["payload_fused_strip_clocks"] = clocks_under_load(
+        calls["payload_fused_strip"][0])
+    emit({"phase": "k1_k2_times", "card": card, "iters": TIMING_ITERS,
+          "l2_flush_bytes": L2_FLUSH_BYTES, "geometry": geometry, **k12})
+
     # ---- the kernels line: bounds from this run's inputs ----
     K_op = len(tab)
     x2, W2, g2, _, _ = cases["payload_fused"]["args"]
@@ -1118,7 +1258,25 @@ def main() -> None:
         "ring_shift_right": k8_err,
     }
     # K4's integer decisions: its mismatches and their largest top-2 margin
-    extra = {"demap": {"mismatches": k4_cmp["mismatches"],
+    k1_shard_bound = bound(
+        2 * S * n_shard * M * 4 + nbytes(r.W, r.normalize_gain)
+        + S * n_shard * M * (8 + 4),
+        tail_flops(S, n_shard, M, K_op, fft=True))["bound_ms"]
+    extra = {"payload_fused_strip": {
+                 "cold_l2_ms": k12["payload_fused_strip"]["cold_l2_ms"],
+                 "warm_event_ms": k12["payload_fused_strip"]["warm_ms"],
+                 "shard_4x1_ms": k12["payload_fused_strip_shard_4x1"][
+                     "device_ms"],
+                 "shard_4x1_bound_ms": k1_shard_bound,
+                 "grid": geometry["payload_fused_strip"]["grid"],
+                 "blocks_per_sm": geometry["payload_fused_strip"][
+                     "blocks_per_sm"]},
+             "payload_fused": {
+                 "cold_l2_ms": k12["payload_fused"]["cold_l2_ms"],
+                 "warm_event_ms": k12["payload_fused"]["warm_ms"],
+                 "grid": geometry["payload_fused"]["grid"],
+                 "blocks_per_sm": geometry["payload_fused"]["blocks_per_sm"]},
+             "demap": {"mismatches": k4_cmp["mismatches"],
                        "max_mismatch_margin": max(
                            k4_cmp["mismatch_margins"], default=0.0)},
              "ring_shift_right": {
@@ -1139,6 +1297,7 @@ def main() -> None:
         "bound_ms": bounds[name]["bound_ms"],
         "bound_by": bounds[name]["bound_by"],
         "library_ms": t_lib,
+        "bound_share": bounds[name]["bound_ms"] / t_k,
         **extra.get(name, {}),
     } for name, (n_launch, err, t_k, t_p, t_lib) in rows.items()]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 // Strip-fused payload tail for Hopper (sm_90a): CP strip + M-point FFT +
-// per-subcarrier S x S equalize + hard demap, one thread block per frame.
+// per-subcarrier S x S equalize + hard demap, a persistent block per SM
+// slot walking over the frames.
 //
 // Replaces the TPU Pallas kernel
 //   rub_mimo_tpu/kernels/payload_fused.py::payload_fused_strip
@@ -8,103 +9,153 @@
 // matrix unit and is not carried over.  Outputs are in natural subcarrier
 // order with exactly n_sym frames (no packed order, no pad frames).
 //
-// What bounds it: memory.  At the reference operating point (M=2048,
+// What bounds it.  The bytes: at the reference operating point (M=2048,
 // CP=152, S=2, 1000 frames) it reads the kept 33 MB of the f32 payload
 // planes (the CP's 608 bytes per plane are whole 32-byte sectors, never
 // fetched) and writes ~49 MB (int32 decisions + complex64 symbols):
-// ~82 MB, a floor of ~24.5 us at the card's 3.35 TB/s.  The FFT is ~0.2 GFLOP,
-// negligible.  So the design keeps every intermediate on chip: each block
-// reads its frame's samples once (coalesced, CP skipped by the load
-// offset), transforms them in shared memory (S * M * 8 bytes, 32 KB at the
-// operating point), and writes each output element once, coalesced.
+// ~82 MB, a floor of ~24.5 us at the card's 3.35 TB/s.  In practice the
+// instructions: the demap's 32-point search costs two FMAs and three
+// compare/select instructions per point and symbol, the compares on the
+// half-rate ALU pipe, and the FFT ~10 float operations per point and
+// pass.
 //
-// Per block (frame k):
-//   1. load x[s][n] = p[s][k*sym + cp + n] into shared memory at the
-//      bit-reversed position of n;
-//   2. log2(M) in-place radix-2 decimation-in-time stages; the twiddles
-//      exp(-2 pi i j / M), j < M/2, come from a table the wrapper builds
-//      in float64 and rounds to float32;
-//   3. per subcarrier: eq[o] = (sum_j W[sc][o][j] X[j]) * gain[sc] * dft_norm
-//      (j in order 0..S-1), then the demap
-//      argmax_q Re(eq) cr[q] + Im(eq) ci[q] - cb[q] with a strict '>' so
-//      the first maximum wins;
-//   4. write rx_data[o][k][sc] (int32) and, when rx_sig is non-null,
-//      rx_sig[o][k][sc] (complex64).
-// Steps 2-4 are payload_common.cuh's fft_eq_demap_frame, shared with K2.
-//
-// Plain C interface for ctypes; the launcher returns cudaGetLastError().
+// Design (payload_fft.cuh has the block, shared with K2): a grid of
+// min(n_sym, blocks per SM x SMs) blocks, each striding over frames;
+// frame k + grid is copied with cp.async into a natural-order stage
+// buffer (16-byte copies where plane_len, sym, cp and the plane pointers
+// are multiples of 4 floats / 16 bytes, else 4-byte copies) while frame
+// k runs its FFT: a Stockham FFT of radix-16 register passes
+// (2048 = 16 * 16 * 8) through a padded, conflict-free shared buffer,
+// then the equalize, the demap over points passed by value in the
+// kernel's parameters, and evict-first stores.  Measured at the
+// operating point on an NVIDIA H100 80GB HBM3, power limit 700 W:
+// 0.0629 ms device time (chip_smoke.py, torch.profiler), 39 % of the
+// bytes bound; the demap costs ~0.9 us per constellation point
+// (chip_smoke.py, k1_k2_times, K1 per modulation).
+
+// Plain C interface for ctypes; the launcher returns a cudaError_t.
 
 #include <cuda_runtime.h>
 
 #include "payload_common.cuh"
+#include "payload_fft.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxPoints = 64;
+// The CP-strip load: frame k's row s is p[s][k*sym + cp : k*sym + cp + M]
+// of two f32 planes; the stage buffer holds [2][S][M] floats.
+struct StripIn {
+  const float* p_re;
+  const float* p_im;
+  long long plane_len;
+  int sym, cp, vec;  // vec: 16-byte copies
 
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-payload_fused_strip_kernel(const float* __restrict__ p_re,
-                           const float* __restrict__ p_im,
-                           long long plane_len,
-                           const float2* __restrict__ W,
-                           const float* __restrict__ gain,
-                           const float* __restrict__ points,
-                           int n_points,
-                           const float2* __restrict__ twiddle,
-                           float dft_norm,
-                           int M, int log2M, int n_sym, int sym, int cp,
-                           int* __restrict__ rx_data,
-                           float2* __restrict__ rx_sig) {
-  extern __shared__ float2 buf[];  // [S][M]
-  __shared__ float cr[kMaxPoints];
-  __shared__ float ci[kMaxPoints];
-  __shared__ float cb[kMaxPoints];
-
-  const int k = blockIdx.x;
-  payload::load_points(points, n_points, cr, ci, cb);
-
-  // 1. CP strip + bit-reversed load
-  const long long frame_off = (long long)k * sym + cp;
-  for (int i = threadIdx.x; i < S * M; i += kThreads) {
-    const int s = i >> log2M;
-    const int n = i & (M - 1);
-    const long long g = (long long)s * plane_len + frame_off + n;
-    buf[s * M + payload::bit_reverse(n, log2M)] =
-        make_float2(p_re[g], p_im[g]);
+  // Starts frame k's copy: into the natural-order stage buffer when two
+  // (16-byte copies where vec, else 4-byte), else into the padded work
+  // rows (4-byte copies).
+  __device__ __forceinline__ void issue(int k, float2* dst, bool two, int S,
+                                        int M, int RS, int i0,
+                                        int nt) const {
+    const long long f0 = (long long)k * sym + cp;
+    float* d = reinterpret_cast<float*>(dst);
+    for (int r = 0; r < 2 * S; ++r) {  // r = plane * S + s
+      const int s = r < S ? r : r - S;
+      const float* src = (r < S ? p_re : p_im) + s * plane_len + f0;
+      if (two && vec) {
+        float* st = d + r * M;
+        for (int i = 4 * i0; i < M; i += 4 * nt)
+          pfft::cp_async16(st + i, src + i);
+      } else if (two) {
+        float* st = d + r * M;
+        for (int i = i0; i < M; i += nt) pfft::cp_async4(st + i, src + i);
+      } else {
+        float* wk = d + 2 * s * RS + (r < S ? 0 : 1);
+        for (int i = i0; i < M; i += nt)
+          pfft::cp_async4(wk + 2 * pfft::pad(i), src + i);
+      }
+    }
   }
-  __syncthreads();
 
-  // 2-4. FFT, equalize + demap + store
-  payload::fft_eq_demap_frame<S>(buf, M, log2M, twiddle, W, gain, dft_norm,
-                                 cr, ci, cb, n_points, k, n_sym, rx_data,
-                                 rx_sig);
+  // (S, M are the block's; stage holds [2][S][M] floats)
+  int S_, M_;
+  __device__ __forceinline__ float2 read(const float2* stage, int s,
+                                         int n) const {
+    const float* st = reinterpret_cast<const float*>(stage);
+    return make_float2(st[s * M_ + n], st[(S_ + s) * M_ + n]);
+  }
+};
+
+template <int S, bool TWO>
+__global__ void __launch_bounds__(TWO ? 256 : 1024)
+payload_fused_strip_kernel(const StripIn in, const pfft::Tail a) {
+  pfft::frames<S, TWO>(in, a);
+}
+
+template <int S, bool TWO>
+cudaError_t run(const StripIn& in, const pfft::Tail& a, int n_sym,
+                cudaStream_t stream, int* geo) {
+  const pfft::Geometry g = pfft::geometry(S, a.M, a.n_tw);
+  int bps = 0, n_sm = 0;
+  cudaError_t e = pfft::occupancy<payload_fused_strip_kernel<S, TWO>>(
+      a.log2M, g, &bps, &n_sm);
+  if (e != cudaSuccess) return e;
+  const int grid = n_sym < bps * n_sm ? n_sym : bps * n_sm;
+  if (geo != nullptr) {
+    geo[0] = grid; geo[1] = bps; geo[2] = n_sm;
+    geo[3] = g.threads; geo[4] = g.smem; geo[5] = g.two_stage;
+    return cudaSuccess;
+  }
+  payload_fused_strip_kernel<S, TWO><<<grid, g.threads, g.smem, stream>>>(
+      in, a);
+  return cudaGetLastError();
 }
 
 template <int S>
-cudaError_t launch(const float* p_re, const float* p_im, long long plane_len,
-                   const float2* W, const float* gain, const float* points,
-                   int n_points, const float2* twiddle, float dft_norm,
-                   int M, int log2M, int n_sym, int sym, int cp,
-                   int* rx_data, float2* rx_sig, cudaStream_t stream) {
-  const size_t smem = (size_t)S * M * sizeof(float2);
-  cudaError_t err = cudaFuncSetAttribute(
-      payload_fused_strip_kernel<S>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  payload_fused_strip_kernel<S><<<n_sym, kThreads, smem, stream>>>(
-      p_re, p_im, plane_len, W, gain, points, n_points, twiddle, dft_norm,
-      M, log2M, n_sym, sym, cp, rx_data, rx_sig);
-  return cudaGetLastError();
+cudaError_t dispatch(const StripIn& in, const pfft::Tail& a, int n_sym,
+                     cudaStream_t stream, int* geo) {
+  if (pfft::geometry(S, a.M, a.n_tw).two_stage)
+    return run<S, true>(in, a, n_sym, stream, geo);
+  if constexpr (S > 1) return run<S, false>(in, a, n_sym, stream, geo);
+  return cudaErrorInvalidValue;  // S = 1 always fits two stages
+}
+
+int launch(const float* p_re, const float* p_im, long long plane_len,
+           const float2* W, const float* gain, const float* points,
+           int n_points, const int* plan, int n_pass, const float2* twiddle,
+           float dft_norm, int S, int M, int log2M, int n_sym, int sym,
+           int cp, int* rx_data, float2* rx_sig, void* stream, int* geo) {
+  if (n_sym < 1 || M != (1 << log2M) || M < 64 || M > 4096 || cp < 0 ||
+      sym < M + cp || S < 1 || S > 4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  pfft::Tail a{};
+  if (!pfft::fill_tail(a, points, n_points, plan, n_pass, M))
+    return (int)cudaErrorInvalidValue;
+  a.W = W; a.gain = gain; a.tw = twiddle; a.rx_data = rx_data;
+  a.rx_sig = rx_sig; a.dft_norm = dft_norm; a.M = M; a.log2M = log2M;
+  a.n_sym = n_sym;
+  const int vec = plane_len % 4 == 0 && sym % 4 == 0 && cp % 4 == 0 &&
+                  reinterpret_cast<size_t>(p_re) % 16 == 0 &&
+                  reinterpret_cast<size_t>(p_im) % 16 == 0;
+  const StripIn in{p_re, p_im, plane_len, sym, cp, vec, S, M};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (S) {
+    case 1: return (int)dispatch<1>(in, a, n_sym, st, geo);
+    case 2: return (int)dispatch<2>(in, a, n_sym, st, geo);
+    case 3: return (int)dispatch<3>(in, a, n_sym, st, geo);
+    default: return (int)dispatch<4>(in, a, n_sym, st, geo);
+  }
 }
 
 }  // namespace
 
 // p_re, p_im: [S, plane_len] f32 flat payload planes (CPs in place)
 // W: [M, S(out), S(rx)] complex64; gain: [M] f32
-// points: [3, n_points] f32 rows (Re c, Im c, |c|^2/2), n_points <= 64
-// twiddle: [M/2] complex64, exp(-2 pi i j / M)
+// points: host [3, 64] f32 rows (Re c, Im c, |c|^2/2), the first
+// n_points used, n_points <= 64 (copied into the kernel's parameters)
+// plan: host [n_pass] radices, 16 first, product M
+// twiddle: complex64 payload_fused.pass_twiddles(M), the [R][Ns]
+// twiddles of each pass after the first
 // rx_data: [S, n_sym, M] int32; rx_sig: [S, n_sym, M] complex64 or null
 // Requires M a power of two in [64, 4096], 1 <= S <= 4, n_sym >= 1,
 // plane_len >= n_sym * sym, sym >= M + cp (a pitch above M + cp skips the
@@ -112,32 +163,22 @@ cudaError_t launch(const float* p_re, const float* p_im, long long plane_len,
 extern "C" int payload_fused_strip(
     const float* p_re, const float* p_im, long long plane_len,
     const float2* W, const float* gain, const float* points, int n_points,
-    const float2* twiddle, float dft_norm, int S, int M, int log2M,
-    int n_sym, int sym, int cp, int* rx_data, float2* rx_sig,
-    void* stream) {
-  if (n_points < 1 || n_points > kMaxPoints || n_sym < 1 ||
-      M != (1 << log2M) || M < 64 || M > 4096 || cp < 0 || sym < M + cp) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (S) {
-    case 1:
-      return (int)launch<1>(p_re, p_im, plane_len, W, gain, points, n_points,
-                            twiddle, dft_norm, M, log2M, n_sym, sym, cp,
-                            rx_data, rx_sig, st);
-    case 2:
-      return (int)launch<2>(p_re, p_im, plane_len, W, gain, points, n_points,
-                            twiddle, dft_norm, M, log2M, n_sym, sym, cp,
-                            rx_data, rx_sig, st);
-    case 3:
-      return (int)launch<3>(p_re, p_im, plane_len, W, gain, points, n_points,
-                            twiddle, dft_norm, M, log2M, n_sym, sym, cp,
-                            rx_data, rx_sig, st);
-    case 4:
-      return (int)launch<4>(p_re, p_im, plane_len, W, gain, points, n_points,
-                            twiddle, dft_norm, M, log2M, n_sym, sym, cp,
-                            rx_data, rx_sig, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+    const int* plan, int n_pass, const float2* twiddle, float dft_norm,
+    int S, int M, int log2M, int n_sym, int sym, int cp, int* rx_data,
+    float2* rx_sig, void* stream) {
+  return launch(p_re, p_im, plane_len, W, gain, points, n_points, plan,
+                n_pass, twiddle, dft_norm, S, M, log2M, n_sym, sym, cp,
+                rx_data, rx_sig, stream, nullptr);
+}
+
+// The launch payload_fused_strip would make, without launching:
+// geo[6] = grid, blocks per SM, SMs, threads per block, dynamic shared
+// bytes, two-stage (1/0).  Returns a cudaError_t.
+extern "C" int payload_fused_strip_geometry(int S, int M, int log2M,
+                                            int n_sym, const int* plan,
+                                            int n_pass, int* geo) {
+  float points[3 * pfft::kMaxPoints] = {};
+  return launch(nullptr, nullptr, 0, nullptr, nullptr, points, 1, plan,
+                n_pass, nullptr, 1.f, S, M, log2M, n_sym, M, 0, nullptr,
+                nullptr, nullptr, geo);
 }

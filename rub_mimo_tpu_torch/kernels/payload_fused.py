@@ -4,9 +4,11 @@ without (K2) the CP strip.
 Ports of rub_mimo_tpu/kernels/payload_fused.py::payload_fused_strip (K1)
 and ::payload_fused (K2).  On CUDA tensors ``payload_fused_strip`` and
 ``payload_fused`` launch the hand-written Hopper kernels
-csrc/payload_fused_strip.cu and csrc/payload_fused.cu (one block per
-frame, radix-2 FFT in shared memory, the block shared through
-csrc/payload_common.cuh, see the source notes); on CPU tensors they run
+csrc/payload_fused_strip.cu and csrc/payload_fused.cu (a persistent,
+occupancy-sized grid; cp.async copies of the next frame overlapping the
+transform; a Stockham FFT of radix-16 register passes, ``fft_plan``; the
+demap points by value, ``pack_points``; the block shared through
+csrc/payload_fft.cuh, see the source notes); on CPU tensors they run
 ``payload_tail_reference`` and ``payload_fused_reference``, the plain
 PyTorch versions of the same math that the tests and chip_smoke.py hold
 the kernels against.  There is no fallback: a CUDA call that a kernel
@@ -41,6 +43,97 @@ def strip_supported(M: int, n_streams: int, arity: int) -> bool:
             and 1 <= n_streams <= 4 and arity <= MAX_POINTS)
 
 
+def fft_plan(M: int) -> tuple:
+    """The radices of the K1/K2 FFT of M points, in pass order: radix 16
+    while four or more radix-2 stages are left, then the rest
+    (2048 -> (16, 16, 8), 64 -> (16, 4)).  The wrappers hand this plan to
+    the kernels, which check that it multiplies to M."""
+    if M < 16 or M & (M - 1):
+        raise ValueError(f"fft_plan: M={M} is not a power of two >= 16")
+    m = M.bit_length() - 1
+    return (16,) * (m // 4) + ((1 << (m % 4),) if m % 4 else ())
+
+
+def twiddle_table(M: int) -> np.ndarray:
+    """exp(-2 pi i m / M), m < M: float64, rounded once to complex64."""
+    return np.exp(-2j * np.pi * np.arange(M) / M).astype(np.complex64)
+
+
+def pass_twiddles(M: int) -> np.ndarray:
+    """The twiddles the kernels read: for each pass of ``fft_plan(M)``
+    after the first (radix R after radices of product Ns), the [R, Ns]
+    block tw[r, k] = twiddle_table(M)[r k M / (Ns R)], concatenated.  The
+    same float32 values as the table, laid out so that the lanes of a
+    warp (adjacent k) read adjacent entries."""
+    tw = twiddle_table(M)
+    plan = fft_plan(M)
+    blocks, Ns = [], plan[0]
+    for R in plan[1:]:
+        r, k = np.arange(R)[:, None], np.arange(Ns)[None, :]
+        blocks.append(tw[r * k * (M // (Ns * R))].ravel())
+        Ns *= R
+    return (np.concatenate(blocks) if blocks
+            else np.zeros(0, np.complex64))
+
+
+def _dft_matrix(R: int, device) -> torch.Tensor:
+    """[R, R] complex64, exp(-2 pi i r q / R) built in float64."""
+    r = np.arange(R)
+    return torch.as_tensor(np.exp(-2j * np.pi * np.outer(r, r) / R)
+                           .astype(np.complex64), device=device)
+
+
+def stockham_fft(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernels' FFT over the last axis (the
+    plan ``fft_plan(M)``), pass by pass with the kernels' index maps and
+    twiddles (``pass_twiddles``): the pass of radix R after radices of
+    product Ns reads v[j, r] = x[j + r M/R] * tw_p[r, j mod Ns] (no
+    twiddles in the first pass), takes y[j] = DFT_R(v[j]) and writes
+    x'[(j - j mod Ns) R + j mod Ns + q Ns] = y[j, q].  The last pass
+    leaves the DFT in natural order."""
+    M = x.shape[-1]
+    plan = fft_plan(M)
+    dev = x.device
+    tw = torch.as_tensor(pass_twiddles(M), device=dev)
+    x = x.to(torch.complex64)
+    Ns, off = 1, 0
+    for R in plan:
+        j = torch.arange(M // R, device=dev)[:, None]
+        r = torch.arange(R, device=dev)[None, :]
+        k = j % Ns
+        v = x[..., j + r * (M // R)]
+        if Ns > 1:
+            v = v * tw[off + r * Ns + k]
+            off += R * Ns
+        out = torch.empty_like(x)
+        out[..., (j - k) * R + k + r * Ns] = v @ _dft_matrix(R, dev)
+        x, Ns = out, Ns * R
+    return x
+
+
+def pack_points(table: np.ndarray) -> np.ndarray:
+    """The demap points as the K1/K2 parameter struct holds them: [3, 64]
+    float32 rows (Re c, Im c, |c|^2 / 2), constellation.demap_planes's
+    values in table order, zeros past the last point (768 bytes)."""
+    planes = constellation.demap_planes(table)
+    if planes.shape[1] > MAX_POINTS:
+        raise ValueError(f"{planes.shape[1]} points: the kernels take at "
+                         f"most {MAX_POINTS}")
+    out = np.zeros((3, MAX_POINTS), np.float32)
+    out[:, :planes.shape[1]] = planes
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _host_points(table_bytes: bytes) -> np.ndarray:
+    return pack_points(np.frombuffer(table_bytes, dtype=np.complex64))
+
+
+@functools.lru_cache(maxsize=16)
+def _host_plan(M: int):
+    plan = fft_plan(M)
+    return (ctypes.c_int * len(plan))(*plan), len(plan)
+
 
 def payload_tail_reference(p_re: torch.Tensor, p_im: torch.Tensor,
                            W: torch.Tensor, gain: torch.Tensor,
@@ -67,10 +160,44 @@ def _kernel_fn():
 
     fn = _build.load("payload_fused_strip").payload_fused_strip
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, ctypes.c_longlong, P, P, P, I, P, ctypes.c_float,
-                   I, I, I, I, I, I, P, P, P]
+    fn.argtypes = [P, P, ctypes.c_longlong, P, P, P, I, P, I, P,
+                   ctypes.c_float, I, I, I, I, I, I, P, P, P]
     fn.restype = I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry_fn(kernel: str):
+    from rub_mimo_tpu_torch.kernels import _build
+
+    fn = getattr(_build.load(kernel), f"{kernel}_geometry")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [I, I, I, I, P, I, P]
+    fn.restype = I
+    return fn
+
+
+def launch_geometry(kernel: str, S: int, M: int, n_sym: int,
+                    device=None) -> dict:
+    """The launch K1 (``kernel="payload_fused_strip"``) or K2
+    (``"payload_fused"``) makes for S streams, M points and n_sym frames on
+    a CUDA device: grid = min(n_sym, blocks per SM x SMs), the blocks per
+    SM from the CUDA occupancy calculator, threads per block, dynamic
+    shared bytes and whether the block double-buffers its copies."""
+    if kernel not in ("payload_fused_strip", "payload_fused"):
+        raise ValueError(f"launch_geometry: unknown kernel {kernel!r}")
+    if not strip_supported(M, S, 1) or n_sym < 1:
+        raise ValueError(f"launch_geometry: no launch for S={S}, M={M}, "
+                         f"n_sym={n_sym}")
+    plan, n_pass = _host_plan(M)
+    geo = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = _geometry_fn(kernel)(S, M, M.bit_length() - 1, n_sym, plan,
+                                   n_pass, geo)
+    if err != 0:
+        raise RuntimeError(f"{kernel} geometry failed: CUDA error {err}")
+    return dict(zip(("grid", "blocks_per_sm", "sms", "threads",
+                     "smem_bytes", "two_stage"), list(geo)))
 
 
 @functools.lru_cache(maxsize=16)
@@ -82,16 +209,17 @@ def _points(table_bytes: bytes, device: torch.device) -> torch.Tensor:
 
 
 def device_points(table: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The demap constants of ``table`` as the kernels take them: [3, K]
+    """The demap constants of ``table`` as K3 and K4 take them: [3, K]
     float32 rows (Re c, Im c, |c|^2 / 2) on ``device``."""
     return _points(np.asarray(table, np.complex64).tobytes(), device)
 
 
 @functools.lru_cache(maxsize=8)
 def _twiddles(M: int, device: torch.device) -> torch.Tensor:
-    """exp(-2 pi i j / M), j < M/2: float64, rounded once to complex64."""
-    tw = np.exp(-2j * np.pi * np.arange(M // 2) / M).astype(np.complex64)
-    return torch.as_tensor(tw, device=device)
+    """``pass_twiddles(M)`` on ``device`` (at least one entry)."""
+    tw = pass_twiddles(M)
+    return torch.as_tensor(tw if tw.size else np.ones(1, np.complex64),
+                           device=device)
 
 
 def _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len, M=None):
@@ -154,16 +282,18 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
     dev = p_re.device
     S = p_re.shape[0]
     fn = _kernel_fn()
-    points = device_points(table, dev)
+    points = _host_points(np.asarray(table, np.complex64).tobytes())
+    plan, n_pass = _host_plan(M)
     twiddle = _twiddles(M, dev)
     rx_data = torch.empty((S, n_sym, M), dtype=torch.int32, device=dev)
     rx_sig = (torch.empty((S, n_sym, M), dtype=torch.complex64, device=dev)
               if emit_sig else None)
     with torch.cuda.device(dev):
         err = fn(p_re.data_ptr(), p_im.data_ptr(), p_re.shape[1],
-                 W.data_ptr(), gain.data_ptr(), points.data_ptr(),
-                 points.shape[1], twiddle.data_ptr(), float(dft_norm),
-                 S, M, M.bit_length() - 1, n_sym, symbol_len, cp_len,
+                 W.data_ptr(), gain.data_ptr(), points.ctypes.data,
+                 len(table), plan, n_pass, twiddle.data_ptr(),
+                 float(dft_norm), S, M, M.bit_length() - 1, n_sym,
+                 symbol_len, cp_len,
                  rx_data.data_ptr(),
                  None if rx_sig is None else rx_sig.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
@@ -196,7 +326,8 @@ def _k2_fn():
 
     fn = _build.load("payload_fused").payload_fused
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, I, P, ctypes.c_float, I, I, I, I, P, P, P]
+    fn.argtypes = [P, P, P, P, I, P, I, P, ctypes.c_float, I, I, I, I, P, P,
+                   P]
     fn.restype = I
     return fn
 
@@ -244,15 +375,17 @@ def payload_fused(x_t: torch.Tensor, W: torch.Tensor, gain: torch.Tensor,
                          f"n_sym={n_sym}, {len(table)} points "
                          "(see strip_supported)")
     dev = x_t.device
-    points = device_points(table, dev)
+    points = _host_points(np.asarray(table, np.complex64).tobytes())
+    plan, n_pass = _host_plan(M)
     twiddle = _twiddles(M, dev)
     rx_data = torch.empty((S, n_sym, M), dtype=torch.int32, device=dev)
     rx_sig = (torch.empty((S, n_sym, M), dtype=torch.complex64, device=dev)
               if emit_sig else None)
     with torch.cuda.device(dev):
         err = _k2_fn()(x_t.data_ptr(), W.data_ptr(), gain.data_ptr(),
-                       points.data_ptr(), points.shape[1], twiddle.data_ptr(),
-                       float(dft_norm), S, M, M.bit_length() - 1, n_sym,
+                       points.ctypes.data, len(table), plan, n_pass,
+                       twiddle.data_ptr(), float(dft_norm), S, M,
+                       M.bit_length() - 1, n_sym,
                        rx_data.data_ptr(),
                        None if rx_sig is None else rx_sig.data_ptr(),
                        torch.cuda.current_stream(dev).cuda_stream)

@@ -84,21 +84,49 @@ def assert_decisions_match(got, ref, y_ref, table) -> None:
         assert bool((top2_margin(y_ref[bad], table) < TIE_MARGIN).all())
 
 
-def _tail_case(dev, M, cp, n_sym):
-    p_re, p_im, G = random_tail_inputs(M + n_sym, 2, M, cp, n_sym)
+def _tail_case(dev, M, cp, n_sym, S=2, offset=0, mod=Modulation.ARB32OPT):
+    """K1's inputs; ``offset`` floats ahead of each plane in its buffer
+    (an offset that is not a multiple of 4 takes the 4-byte copies)."""
+    p_re, p_im, G = random_tail_inputs(M + n_sym, S, M, cp, n_sym)
     W, gain = zf.invert(torch.as_tensor(G, device=dev))
-    args = (torch.as_tensor(p_re, device=dev),
-            torch.as_tensor(p_im, device=dev), W, gain,
-            constellation.table(Modulation.ARB32OPT),
+
+    def plane(p):
+        buf = torch.zeros(offset + p.size, dtype=torch.float32, device=dev)
+        buf[offset:] = torch.as_tensor(p.ravel(), device=dev)
+        return buf[offset:].view(p.shape)
+
+    args = (plane(p_re), plane(p_im), W, gain, constellation.table(mod),
             np.float32(1.0 / np.sqrt(M)))
     return args, dict(n_sym=n_sym, symbol_len=M + cp, cp_len=cp)
 
 
-@pytest.mark.parametrize("M,cp,n_sym", [(2048, 152, 13), (64, 16, 8),
-                                        (1024, 72, 5), (4096, 288, 3)])
-def test_kernel_matches_plain_tail(M, cp, n_sym):
+# (S, M, cp, n_sym, plane offset in floats, modulation): every M of the
+# gate, odd CPs and unaligned planes (4-byte copies), one- and two-stage
+# blocks, 2, 4, 16, 32 and 64 points
+A32, QAM16, QAM64 = Modulation.ARB32OPT, Modulation.QAM16, Modulation.QAM64
+TAIL_CASES = {
+    "m64": (2, 64, 16, 8, 0, A32),
+    "m128_bpsk": (2, 128, 8, 6, 0, Modulation.BPSK),
+    "m256_qpsk": (2, 256, 20, 5, 0, Modulation.QPSK),
+    "m512_qam16": (2, 512, 36, 5, 0, QAM16),
+    "m1024": (2, 1024, 72, 5, 0, A32),
+    "m2048": (2, 2048, 152, 13, 0, A32),
+    "m4096_qam64": (2, 4096, 288, 3, 0, QAM64),
+    "m2048_odd_cp": (2, 2048, 151, 7, 0, A32),
+    "m2048_offset1": (2, 2048, 152, 7, 1, A32),
+    "m256_odd_cp_offset3": (2, 256, 17, 9, 3, QAM16),
+    "s1_m4096": (1, 4096, 288, 4, 0, A32),
+    "s3_m1024_qam64": (3, 1024, 72, 4, 0, QAM64),
+    "s4_m2048": (4, 2048, 152, 5, 0, QAM16),
+    "s4_m4096_offset2": (4, 4096, 290, 3, 2, Modulation.QPSK),
+}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_kernel_matches_plain_tail(case):
     dev = require_cuda()
-    args, kw = _tail_case(dev, M, cp, n_sym)
+    S, M, cp, n_sym, offset, mod = TAIL_CASES[case]
+    args, kw = _tail_case(dev, M, cp, n_sym, S, offset, mod)
     before = pf.payload_fused_strip.launches
     sig, data = pf.payload_fused_strip(*args, **kw)
     ref_sig, ref_data = pf.payload_tail_reference(*args, **kw)
@@ -110,6 +138,67 @@ def test_kernel_matches_plain_tail(M, cp, n_sym):
     assert float((sig - ref_sig).abs().max()) <= 1e-4 * rms
     _, data_only = pf.payload_fused_strip(*args, emit_sig=False, **kw)
     assert torch.equal(data_only, data)
+
+
+@pytest.mark.parametrize("where", ["below", "equal", "above"])
+@pytest.mark.parametrize("S", [2, 4], ids=["two_stage", "one_stage"])
+@pytest.mark.parametrize("kernel", ["payload_fused_strip", "payload_fused"])
+def test_fused_tails_around_the_grid_size(kernel, S, where):
+    """n_sym one below, equal to and one above the persistent grid's
+    blocks per SM x SMs, at M = 2048."""
+    dev = require_cuda()
+    M, cp = 2048, 152
+    full = pf.launch_geometry(kernel, S, M, 1 << 20)
+    cap = full["blocks_per_sm"] * full["sms"]
+    assert full["grid"] == cap and full["two_stage"] == (S * M <= 4096)
+    n_sym = cap + {"below": -1, "equal": 0, "above": 1}[where]
+    assert pf.launch_geometry(kernel, S, M, n_sym)["grid"] == min(n_sym, cap)
+    args, kw = _tail_case(dev, M, cp, n_sym, S)
+    table = args[4]
+    if kernel == "payload_fused":
+        x = k7.cp_strip(torch.complex(args[0], args[1]), n_sym, M + cp, cp)
+        args = (x, *args[2:])
+        sig, data = pf.payload_fused(*args)
+        ref_sig, ref_data = pf.payload_fused_reference(*args)
+    else:
+        sig, data = pf.payload_fused_strip(*args, **kw)
+        ref_sig, ref_data = pf.payload_tail_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert data.shape == (S, n_sym, M)
+    assert_decisions_match(data, ref_data, ref_sig, table)
+    rms = float(torch.sqrt(torch.mean(ref_sig.abs() ** 2)))
+    assert float((sig - ref_sig).abs().max()) <= 1e-4 * rms
+
+
+def require_cuda_devices(count: int) -> list[torch.device]:
+    """Skip the calling test unless `count` or more CUDA devices are
+    present; the devices in index order."""
+    require_cuda()
+    if torch.cuda.device_count() < count:
+        pytest.skip(f"needs {count} or more NVIDIA GPUs "
+                    f"({torch.cuda.device_count()} present)")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.parametrize("S", [2, 4], ids=["two_stage", "one_stage"])
+def test_fused_tails_on_every_device(S):
+    """K1 and K2 on each card in turn: each device's context needs the
+    raised shared-memory limit (the two-stage block takes 86 KB)."""
+    M, cp, n_sym = 2048, 152, 9
+    for dev in require_cuda_devices(2):
+        args, kw = _tail_case(dev, M, cp, n_sym, S)
+        x = k7.cp_strip(torch.complex(args[0], args[1]), n_sym, M + cp, cp)
+        for got, (ref_sig, ref_data) in (
+                (pf.payload_fused_strip(*args, **kw),
+                 pf.payload_tail_reference(*args, **kw)),
+                (pf.payload_fused(x, *args[2:]),
+                 pf.payload_fused_reference(x, *args[2:]))):
+            sig, data = got
+            torch.cuda.synchronize(dev)
+            assert data.device == dev and data.shape == (S, n_sym, M)
+            assert_decisions_match(data, ref_data, ref_sig, args[4])
+            rms = float(torch.sqrt(torch.mean(ref_sig.abs() ** 2)))
+            assert float((sig - ref_sig).abs().max()) <= 1e-4 * rms
 
 
 def test_kernel_rejects_what_it_cannot_take():
@@ -375,12 +464,32 @@ def test_eq_demap_kernel_matches_plain(S, n_sym, M):
     assert none_sig is None and torch.equal(d2, data)
 
 
-@pytest.mark.parametrize("S,n_sym,M", [(2, 40, 2048), (1, 9, 64),
-                                       (3, 4, 1024), (4, 3, 4096)])
-def test_payload_fused_kernel_matches_plain(S, n_sym, M):
+# (S, n_sym, M, modulation, offset of x in complex samples): every M of
+# the gate, 1-4 streams, 2-64 points, an unaligned x (8-byte copies)
+K2_CASES = {
+    "s2_m2048": (2, 40, 2048, A32, 0),
+    "s1_m64": (1, 9, 64, A32, 0),
+    "s2_m128_bpsk": (2, 7, 128, Modulation.BPSK, 0),
+    "s3_m256_qpsk": (3, 5, 256, Modulation.QPSK, 0),
+    "s2_m512_qam16": (2, 6, 512, QAM16, 0),
+    "s3_m1024": (3, 4, 1024, A32, 0),
+    "s4_m4096": (4, 3, 4096, A32, 0),
+    "s1_m4096_qam64": (1, 5, 4096, QAM64, 0),
+    "s2_m2048_offset1": (2, 9, 2048, A32, 1),
+    "s4_m2048_offset1_qam16": (4, 5, 2048, QAM16, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_payload_fused_kernel_matches_plain(case):
     dev = require_cuda()
+    S, n_sym, M, mod, offset = K2_CASES[case]
     x, W, gain = _eq_case(dev, S, n_sym, M, M + 7 * S)
-    table = constellation.table(Modulation.ARB32OPT)
+    if offset:
+        buf = torch.zeros(offset + x.numel(), dtype=x.dtype, device=dev)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(x.shape)
+    table = constellation.table(mod)
     norm = np.float32(1.0 / np.sqrt(M))
     before = pf.payload_fused.launches
     sig, data = pf.payload_fused(x, W, gain, table, norm)
@@ -391,6 +500,8 @@ def test_payload_fused_kernel_matches_plain(S, n_sym, M):
     rms = float(torch.sqrt(torch.mean(ref_sig.abs() ** 2)))
     assert float((sig - ref_sig).abs().max()) <= 1e-4 * rms
     assert_decisions_match(data, ref_data, ref_sig, table)
+    none_sig, d2 = pf.payload_fused(x, W, gain, table, norm, emit_sig=False)
+    assert none_sig is None and torch.equal(d2, data)
 
 
 def test_payload_kernels_reject_what_they_cannot_take():
@@ -495,10 +606,13 @@ def test_generic_tail_decodes_on_card_match_cpu(cfg, case):
 
 
 @pytest.mark.parametrize("M,cp,n_sym,pitch", [(2048, 152, 7, 4400),
-                                              (64, 16, 9, 160)])
+                                              (64, 16, 9, 160),
+                                              (2048, 152, 263, 2200),
+                                              (512, 40, 11, 1105)])
 def test_kernel_with_pitch_matches_plain_tail(M, cp, n_sym, pitch):
     """K1 with a symbol pitch above M + cp (the sharded decode's stripe
-    of every n_sc-th symbol)."""
+    of every n_sc-th symbol; (2048, 263 frames, 2200) is one (4, 1)
+    shard's call, an odd pitch takes the 4-byte copies)."""
     dev = require_cuda()
     args, _ = _tail_case(dev, M, cp, n_sym * pitch // (M + cp) + 1)
     p_re, p_im = (p[:, :n_sym * pitch].contiguous() for p in args[:2])
@@ -590,3 +704,27 @@ def test_sharded_decode_on_card_matches_single_device(case):
     np.testing.assert_allclose(n(got.G), n(single.G), rtol=2e-4, atol=2e-5)
     assert_decisions_match(got.rx_data, single.rx_data, single.rx_sig,
                            constellation.table(MID.modulation))
+
+
+def test_sharded_decode_across_cards_matches_single_device():
+    """The (4, 1) ppermute decode on make_mesh()'s own devices, one shard
+    per card: K1 runs on each card."""
+    devs = require_cuda_devices(4)
+    cap = _capture(MID, delay=3000, seed=3)
+    single = rx.make_decoder(MID, device=devs[0])(cap)
+    m = pmesh.make_mesh(4, 1)
+    assert [d.index for d in m.devices.flat] == [0, 1, 2, 3]
+    re, im = pmesh.shard_capture_planes(cap, m)
+    dec = ds.build_sharded_decoder(MID, m, 4 * re[0][0].shape[1],
+                                   halo_impl="ppermute",
+                                   input_format="planes")
+    before = pf.payload_fused_strip.launches
+    got = dec(re, im)
+    torch.cuda.synchronize()
+    assert pf.payload_fused_strip.launches == before + 4
+    for f in ("synced", "sync_index", "sync_sample", "decode_start"):
+        assert int(getattr(got, f)) == int(getattr(single, f)), f
+    np.testing.assert_allclose(n(got.G.to(devs[0])), n(single.G),
+                               rtol=2e-4, atol=2e-5)
+    assert_decisions_match(got.rx_data.to(devs[0]), single.rx_data,
+                           single.rx_sig, constellation.table(MID.modulation))
