@@ -33,8 +33,16 @@ the port's CPU decode of the same capture; the sharded decode
 (4, 1) and (2, 2) with the ppermute halo (coarse sync, K1 on every
 shard) and (4, 1) with K8's (full-rate sync: K8, K6, K1 on every shard),
 each against the single-device decode; and mimo_4x4_wideband at full
-width, single-device and sharded on (4, 1).  Every launch count is set
-to 0 just before a path runs and read just after.  It decodes the
+width, single-device and sharded on (4, 1).  On 2 or more cards its
+across_cards phase holds K8 pulling halos from other cards bit for bit
+against its plain version (one launch per card), decodes the operating
+point sharded across the cards ((2, 1) on two; (4, 1) and (2, 2) on
+four, ``pallas_dma``, with ppermute (n, 1) beside it) and, on four,
+mimo_4x4_wideband (4, 1) with ``pallas_dma``, each equal to the single
+decode with SER 0, and serves 8 captures over the cards and over one
+card, each equal to its single decode; on one card it prints
+{"phase": "across_cards", "run": false, "cards": 1}.  Every launch count
+is set to 0 just before a path runs and read just after.  It decodes the
 checked-in golden capture, times the decodes and the kernels with CUDA
 events, and breaks the default decode down by stage (CUDA events per
 stage, torch.profiler for the device's busy time), and times each
@@ -83,6 +91,11 @@ MODE_ITERS = 10      # timing runs of each generic-tail decode
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 L2_FLUSH_BYTES = 256 << 20  # written before a cold call: 5x the 50 MB L2
+NVLINK_BYTES_PER_S = 450e9  # one way, card to card (H100 SXM data sheet)
+# channel seeds of the across-cards serving check's 8 captures, the
+# operating point's seeds from 100 whose decode has SER 0 at 30 dB (101,
+# 106, 109 and 111 do not, on the CPU decode as well)
+SERVING_SEEDS = (100, 102, 103, 104, 105, 107, 108, 110)
 
 # kernel -> (module in rub_mimo_tpu_torch.kernels, wrapper, CUDA source,
 # the TPU kernel it replaces)
@@ -265,33 +278,45 @@ def stage_times(cfg, re: torch.Tensor, im: torch.Tensor, sync_index: int
     return {name: cuda_ms(fn)["median_ms"] for name, fn in stages.items()}
 
 
+def _union_us(events) -> float:
+    """The length of the union of the events' device intervals (µs)."""
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us
+
+
 def device_busy(fn, n: int = 5, tries: int = 3) -> dict:
     """torch.profiler over n calls of fn: the card's busy ms per call (the
-    union of its kernel and copy intervals) and kernels per call.  A
+    union of its kernel and copy intervals; across cards, of any card's,
+    with each card's own in ``busy_ms_by_card``) and kernels per call.  A
     session that recorded no device activity is run again, up to
     ``tries`` sessions; busy is None when none recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
+    sync_all()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
-            torch.cuda.synchronize()
+            sync_all()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if dev:
             break
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    by_card: dict = {}
+    for e in dev:
+        by_card.setdefault(e.device_index, []).append(e)
     kernels = [e for e in dev if "memcpy" not in e.name.lower()
                and "memset" not in e.name.lower()]
-    return {"busy_ms": busy_us / n / 1e3 if dev else None,
+    return {"busy_ms": _union_us(dev) / n / 1e3 if dev else None,
+            "busy_ms_by_card": {str(c): _union_us(v) / n / 1e3
+                                for c, v in sorted(by_card.items())},
             "kernels": len(kernels) / n,
             "top_kernels_us": sorted(
                 ((e.name[:60], e.time_range.elapsed_us()) for e in kernels),
@@ -496,13 +521,50 @@ def check_halos(k8, mesh, parts) -> float:
     got = k8.ring_shift_right(parts, mesh)
     ref = k8.ring_shift_right_reference(parts, mesh)
     torch.cuda.synchronize()
+    sync_all()
     err = 0.0
     for t, row in enumerate(got):
         for s, g in enumerate(row):
-            require(torch.equal(g, ref[t][s]),
+            want = ref[t][s].to(g.device)  # across cards: t-1's card
+            require(torch.equal(g, want),
                     f"K8 differs from its plain version at shard {(t, s)}")
-            err = max(err, float((g - ref[t][s]).abs().max()))
+            err = max(err, float((g - want).abs().max()))
     return err
+
+
+def sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def launch_device_us(fn, name: str, n: int = 10, tries: int = 3) -> dict:
+    """torch.profiler over n calls of fn: the mean device µs of one
+    launch of the kernels whose name holds ``name``, by card index, and
+    the launches per call.  A session that recorded none of them is run
+    again, up to ``tries`` sessions; empty when none did."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync_all()
+    ev = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            sync_all()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and name in e.name]
+        if ev:
+            break
+    by_card: dict = {}
+    for e in ev:
+        by_card.setdefault(e.device_index, []).append(
+            e.time_range.elapsed_us())
+    return {"us_by_card": {str(c): statistics.mean(v)
+                           for c, v in sorted(by_card.items())},
+            "launches_per_call": len(ev) / n}
 
 
 def stream_ser(rx_data: torch.Tensor, tx_data, cfg) -> list:
@@ -554,6 +616,147 @@ def run_path(name: str, dec, planes, tx_data, cfg, expect: dict,
     return r, counts
 
 
+def across_cards(cfg, cap, tx_data, r, qcfg, qcap, qtx, rq):
+    """The across_cards phase, on 2 or more cards (else it prints
+    ``run: false``): K8 pulling halos across cards bit for bit against
+    its plain version; the operating point's sharded decode across the
+    cards ((2, 1) on two, (4, 1) and (2, 2) on four, ``pallas_dma``, and
+    ``ppermute`` on (n, 1) beside it) and, on four, mimo_4x4_wideband
+    (4, 1) with ``pallas_dma``, each held equal to the single decode (r,
+    rq) with SER 0 and its launch counts asserted; batched serving of
+    8 captures (SERVING_SEEDS) over the cards and over one card, each
+    capture against its single decode.  Returns what phases 10 and 12
+    time, or None."""
+    from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.kernels import halo_dma as k8
+    from rub_mimo_tpu_torch.ofdm import constellation
+    from rub_mimo_tpu_torch.parallel import decode_sharded as ds
+    from rub_mimo_tpu_torch.parallel import mesh as pmesh
+    from rub_mimo_tpu_torch.parallel import serving
+    from rub_mimo_tpu_torch.pipeline import rx
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "across_cards", "run": False, "cards": cards})
+        return None
+    n_time = 4 if cards >= 4 else 2
+    devs = [torch.device("cuda", i) for i in range(n_time)]
+    home = devs[0]
+    S, halo = cfg.num_streams, cfg.M - 1
+
+    # K8 on seeded random halos of meshes whose shards cycle over the
+    # cards (one launch per card), then on the operating point's halos
+    rng = np.random.default_rng(9)
+    for shape in ((2, 1), (4, 1), (4, 2)):
+        flat = [devs[i % n_time] for i in range(shape[0] * shape[1])]
+        hmesh = pmesh.make_mesh(*shape, devices=flat)
+        parts = [[torch.as_tensor(
+            (rng.standard_normal((S, halo)) + 1j * rng.standard_normal(
+                (S, halo))).astype(np.complex64), device=hmesh.devices[t, s])
+            for s in range(shape[1])] for t in range(shape[0])]
+        err, c = drive(lambda: check_halos(k8, hmesh, parts))
+        require(c["ring_shift_right"] == len(set(flat)),
+                f"K8 across cards on {shape}: {c['ring_shift_right']} "
+                f"launches, expected {len(set(flat))}")
+        emit({"phase": "across_cards", "case": "k8_random",
+              "mesh": list(shape), "cards": [d.index for d in flat],
+              "halo": [S, halo], "launches": c["ring_shift_right"],
+              "bit_equal": True, "max_abs_err": err})
+    mesh_x = pmesh.make_mesh(n_time, 1, devices=devs)
+    op_halos = [[b[:, -halo:] for b in row]
+                for row in pmesh.shard_capture(cap, mesh_x)]
+    k8_err, c = drive(lambda: check_halos(k8, mesh_x, op_halos))
+    require(c["ring_shift_right"] == n_time,
+            f"K8 across cards: {c['ring_shift_right']} launches")
+    emit({"phase": "across_cards", "case": "k8_operating_point",
+          "mesh": [n_time, 1], "halo": [S, halo], "launches": n_time,
+          "bit_equal": True, "max_abs_err": k8_err})
+
+    # the sharded decodes; launches: K1 on every shard, K8 and K6 once per
+    # card of the "sc" column 0 with pallas_dma, none with ppermute (the
+    # coarse stage A)
+    paths = {f"pallas_dma_{n_time}x1": (cfg, "pallas_dma", (n_time, 1)),
+             f"ppermute_{n_time}x1": (cfg, "ppermute", (n_time, 1))}
+    if cards >= 4:
+        paths["pallas_dma_2x2"] = (cfg, "pallas_dma", (2, 2))
+        paths["mimo_4x4_wideband_pallas_dma_4x1"] = (qcfg, "pallas_dma",
+                                                     (4, 1))
+    runs = {}
+    for name, (c_cfg, impl, shape) in paths.items():
+        smesh = pmesh.make_mesh(*shape, devices=[
+            torch.device("cuda", i) for i in range(shape[0] * shape[1])])
+        capture, ref, txd = ((qcap, rq, qtx) if c_cfg is qcfg
+                             else (cap, r, tx_data))
+        planes_sh = pmesh.shard_capture_planes(capture, smesh)
+        d = ds.build_sharded_decoder(
+            c_cfg, smesh, shape[0] * planes_sh[0][0][0].shape[1],
+            halo_impl=impl, input_format="planes")
+        rs, counts = drive(lambda: d(*planes_sh))
+        sync_all()
+        col = len(set(smesh.devices[:, 0])) if impl == "pallas_dma" else 0
+        want = {k: 0 for k in KERNELS}
+        want.update(payload_fused_strip=shape[0] * shape[1],
+                    ring_shift_right=col, sc_metric=col)
+        require(counts == want, f"across cards {name}: launches {counts}, "
+                f"expected {want}")
+        require(rs.G.device == home and rs.rx_data.device == home,
+                f"across cards {name}: results not on {home}")
+        scmp = same_sharded(rs, ref, constellation.table(c_cfg.modulation),
+                            f"across cards {name}")
+        ser = stream_ser(rs.rx_data, txd, c_cfg)
+        require(all(x == 0.0 for x in ser), f"across cards {name}: SER {ser}")
+        emit({"phase": "across_cards", "path": name, "mesh": list(shape),
+              "cards": [x.index for x in smesh.devices.flat],
+              "halo_impl": impl, "capture": list(capture.shape),
+              "shard": list(planes_sh[0][0][0].shape), "launches": counts,
+              "ser_percent": ser, "equal_to_single_device": True, **scmp})
+        runs[name] = (d, planes_sh)
+        del rs
+
+    # batched serving: the SERVING_SEEDS captures over the cards, and the
+    # same captures over one card, each against its single decode
+    caps, txs = [], []
+    for seed in SERVING_SEEDS:
+        spec = simulator.ChannelSpec(snr_db=30.0, delay=5000, seed=seed)
+        c8, t8, _ = simulator.simulate_capture(cfg, spec, device=home)
+        caps.append(c8)
+        txs.append(t8)
+    t_min = min(x.shape[-1] for x in caps)
+    batch = torch.stack([x[:, :t_min] for x in caps])
+    del caps
+    single = rx.make_decoder(cfg, device=home)
+    n_serve = len(SERVING_SEEDS)
+    refs = [single(batch[i]) for i in range(n_serve)]
+    tab = constellation.table(cfg.modulation)
+    serve = {}
+    for key, sdevs in (("cards", devs), ("one_card", [home] * n_time)):
+        smesh = pmesh.make_mesh(n_time, 1, devices=sdevs)
+        sdec = serving.make_sharded_batch_decoder(cfg, smesh)
+        blocks = serving.shard_batch(batch, smesh)
+        got, counts = drive(lambda: sdec(blocks))
+        sync_all()
+        require(counts["payload_fused_strip"] == n_serve,
+                f"serving on {key}: launches {counts}")
+        require(got.rx_data.device == home, f"serving on {key}: not on home")
+        worst = {"mismatches": 0, "G_max_abs_err": 0.0}
+        for i in range(n_serve):
+            gi = rx.DecodeResult(*(None if x is None else x[i] for x in got))
+            ci = same_sharded(gi, refs[i], tab, f"serving on {key}, {i}")
+            ser = stream_ser(gi.rx_data, txs[i], cfg)
+            require(all(x == 0.0 for x in ser),
+                    f"serving on {key}, capture {i}: SER {ser}")
+            worst["mismatches"] += ci["mismatches"]
+            worst["G_max_abs_err"] = max(worst["G_max_abs_err"],
+                                         ci["G_max_abs_err"])
+        emit({"phase": "across_cards", "path": f"serving_{key}",
+              "mesh": [n_time, 1], "cards": [x.index for x in sdevs],
+              "batch": list(batch.shape), "launches": counts,
+              "equal_to_single_decodes": True, "ser_zero": True, **worst})
+        serve[key] = (sdec, blocks)
+    return {"cards": cards, "n_time": n_time, "runs": runs, "serve": serve,
+            "k8": (mesh_x, op_halos)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
@@ -588,7 +791,7 @@ def main() -> None:
     k7._kernel_fn()
     k5._kernel()
     k6._kernel_fn()
-    k8._kernel_fn()
+    k8._lib()
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -968,7 +1171,6 @@ def main() -> None:
     qdec = rx.make_decoder(qcfg, device=dev, input_format="planes")
     rq, q_counts = drive(lambda: qdec(*qplanes))
     qsd, q_sh = sharded(qcfg, qcap, "ppermute", (4, 1))
-    del qcap
     rqs, qs_counts = drive(lambda: qsd(*q_sh))
     # sync_quorum=3 takes the full-rate stage A (K6 once, its halo by the
     # ppermute collective) and K1 runs on each shard
@@ -986,7 +1188,11 @@ def main() -> None:
           "ser_percent_single": report.score(rq, qtx, qcfg).symbol_error_rate,
           "ser_percent_sharded": stream_ser(rqs.rx_data, qtx, qcfg),
           "equal_to_single_device": True, **qcmp})
-    del rq, rqs
+    del rqs
+
+    # ---- phase 9h: across cards (2 or more cards) ----
+    xc = across_cards(cfg, cap, tx_data, r, qcfg, qcap, qtx, rq)
+    del qcap, rq
 
     # ---- phase 10: times (CUDA events, medians over TIMING_ITERS) ----
     # the two sync paths in turns: default, pallas, pallas, default
@@ -1004,6 +1210,29 @@ def main() -> None:
                for name, (d, p) in shard_runs.items()}
     t_4x4 = {"single": cuda_ms(lambda: qdec(*qplanes), iters=MODE_ITERS),
              "sharded_4x1": cuda_ms(lambda: qsd(*q_sh), iters=MODE_ITERS)}
+    t_across = None
+    if xc is not None:
+        # CUDA events on the home card (cuda:0), where every result lands;
+        # the (n, 1) pair and the two servings in turns: a, b, b, a
+        nt = xc["n_time"]
+        order = [f"pallas_dma_{nt}x1", f"ppermute_{nt}x1"]
+        order += [k for k in xc["runs"] if k not in order]
+        t_across = {"decode_sharded": {}, "decode_sharded_again": {},
+                    "serving_8": {}, "serving_8_again": {}}
+        for rnd, seq in (("decode_sharded", order),
+                         ("decode_sharded_again", order[1::-1])):
+            for name in seq:
+                d, p = xc["runs"][name]
+                t_across[rnd][name] = cuda_ms(lambda d=d, p=p: d(*p),
+                                              iters=MODE_ITERS)
+        for rnd, seq in (("serving_8", ("cards", "one_card")),
+                         ("serving_8_again", ("one_card", "cards"))):
+            for key in seq:
+                d, b = xc["serve"][key]
+                t_across[rnd][key] = cuda_ms(lambda d=d, b=b: d(b),
+                                             iters=MODE_ITERS)
+        t_across["ring_shift_right_peer"] = cuda_ms(
+            lambda: k8.ring_shift_right(xc["k8"][1], xc["k8"][0]))
     # each kernel, its plain version and, where there is one, the one
     # PyTorch call computing the same function, on the main path's shapes
     sync_args = (cap, cfg.M, cfg.cp_len, thr)
@@ -1056,6 +1285,7 @@ def main() -> None:
           "decode_mimo_2x2_zf": t_impl, "decode_mode": t_mode,
           "decode_wifi_like": t_wifi,
           "decode_sharded": t_shard, "decode_mimo_4x4_wideband": t_4x4,
+          "across_cards": t_across,
           "k1": t_k1, "plain_tail": t_plain,
           "k5": t_k5, "plain_k5": t_k5_plain,
           "k6": t_k6, "plain_k6": t_k6_plain,
@@ -1075,6 +1305,9 @@ def main() -> None:
     busy_shard = {name: device_busy(lambda d=d, p=p: d(*p))
                   for name, (d, p) in shard_runs.items()
                   if name.endswith("4x1")}
+    busy_across = {} if xc is None else {
+        name: device_busy(lambda d=d, p=p: d(*p))
+        for name, (d, p) in xc["runs"].items() if name.endswith("x1")}
     t_after = cuda_ms(lambda: dec(re, im))
     emit({"phase": "stages", "card": card, "iters": TIMING_ITERS,
           "stage_ms": stage_ms,
@@ -1109,7 +1342,17 @@ def main() -> None:
                   1.0 - b["busy_ms"] / t_shard[name]["median_ms"]),
               "device_kernels_per_decode": b["kernels"],
               "longest_kernels_us": b["top_kernels_us"]}
-              for name, b in busy_shard.items()}})
+              for name, b in busy_shard.items()},
+          # across cards: busy while any card is, and each card's own
+          "across_cards": {name: {
+              "device_busy_ms_per_decode": b["busy_ms"],
+              "busy_ms_by_card": b["busy_ms_by_card"],
+              "device_idle_share": (
+                  None if b["busy_ms"] is None else 1.0 - b["busy_ms"]
+                  / t_across["decode_sharded"][name]["median_ms"]),
+              "device_kernels_per_decode": b["kernels"],
+              "longest_kernels_us": b["top_kernels_us"]}
+              for name, b in busy_across.items()}})
 
     # ---- phase 12: each kernel's time on the card (torch.profiler) ----
     # the card's busy time per call, kernel work only; CUDA events (which
@@ -1125,10 +1368,30 @@ def main() -> None:
         dev_ms[name] = tuple(
             b if b is not None else None if ev is None else ev["median_ms"]
             for b, ev in zip(busy, t_calls[name]))
+    k8_peer = None
+    if xc is not None:
+        # K8's peer form: the device time of each launch by card (card 0's
+        # launch only writes zeros, the others pull a halo over NVLink),
+        # against the bound of one launch: a pull reads one [S, M-1]
+        # halo over NVLink and writes it to HBM, the larger of the two
+        # times; a zero fill writes it
+        halo_bytes = nbytes(xc["k8"][1][0][0])
+        k8_peer = {
+            "mesh": [xc["n_time"], 1],
+            "plain_ms": cuda_ms(lambda: k8.ring_shift_right_reference(
+                xc["k8"][1], xc["k8"][0]))["median_ms"],
+            "halo_bytes": halo_bytes,
+            "bound_pull_ms": max(halo_bytes / NVLINK_BYTES_PER_S,
+                                 halo_bytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_zero_fill_ms": halo_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            **launch_device_us(lambda: k8.ring_shift_right(
+                xc["k8"][1], xc["k8"][0]), "ring_shift_right")}
     emit({"phase": "kernel_device_ms", "card": card, "profiled_calls": 10,
           **{name: {"kernel": k, "plain": p, "library": lib,
                     "timer": timer[name]}
-             for name, (k, p, lib) in dev_ms.items()}})
+             for name, (k, p, lib) in dev_ms.items()},
+          "ring_shift_right_peer": k8_peer})
 
     # ---- phase 12b: each payload_impl's whole tail on the card ----
     # from the planes' payload slice to the decisions, on the operating

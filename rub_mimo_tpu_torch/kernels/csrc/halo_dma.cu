@@ -1,31 +1,41 @@
 // Halo exchange along the mesh's "time" axis for Hopper (sm_90a): every
 // shard (t, s) receives the [rows, len] complex64 halo of shard (t-1, s);
-// the shards of t = 0 receive zeros.  One launch moves every shard's halo.
+// the shards of t = 0 receive zeros.
 //
 // Replaces the TPU Pallas kernel
 //   rub_mimo_tpu/kernels/halo_dma.py::ring_shift_right
 //   (body _shift_kernel),
-// whose symmetric ring of make_async_remote_copy DMAs between chips (with
-// the wrap-around copy into shard 0 masked to zeros afterwards) was shaped
-// by the TPU's inter-chip links.  Here the mesh's shards sit on one card:
-// each block copies one destination shard's halo from its left
-// neighbour's buffer and the t = 0 shards are written with zeros by the
-// kernel itself, so there is no wrap-around copy to mask.  Complex samples
-// move as float2; the TPU kernel's [S, 2, H] float32 planes were a Pallas
-// TPU limit (no complex dtype) and are not carried over.
+// whose symmetric ring of make_async_remote_copy DMAs between chips (each
+// chip pushes to its right neighbour and waits for its own send and
+// receive, with the wrap-around copy into shard 0 masked to zeros
+// afterwards) was shaped by the TPU's inter-chip links.  Here each
+// destination pulls: a block copies one destination shard's halo from its
+// left neighbour's buffer, and the t = 0 shards are written with zeros by
+// the kernel itself, so there is no wrap-around copy to mask.
 //
-// The source and destination pointers of every shard come by value in the
-// kernel's parameter struct (at most kMaxShards shards): no pointer table
-// is copied to the device before the launch.
+// One launch covers the destination shards of one card.  A mesh on one
+// card is one launch; a mesh over several cards is one launch per card
+// that holds a destination shard (kernels/halo_dma.py groups them), on
+// that card's stream.  A source may lie on another card: with peer access
+// enabled (enable_peer_access below) unified addressing makes its pointer
+// valid in the kernel, and the loads go over NVLink.  The ordering of the
+// two cards' streams around the read is the caller's (the wrapper's
+// events), as is the choice of card.
+//
+// Complex samples move as float2; the TPU kernel's [S, 2, H] float32
+// planes were a Pallas TPU limit (no complex dtype) and are not carried
+// over.  The source and destination pointers come by value in the
+// kernel's parameter struct (at most kMaxShards destinations): no pointer
+// table is copied to the device before the launch.
 //
 // What bounds it: memory, and at the sizes the sharded decode gives it,
-// launch latency.  At the reference operating point (M=2048, S=2, a
-// (4, 1) mesh) it reads three halos and writes four, [2, 2047] complex64
-// each: ~229 KB, well under a microsecond at the card's 3.35 TB/s.  Each
-// thread moves one float2; neighbouring threads touch neighbouring
-// addresses of a row.
+// launch latency.  At the reference operating point (M=2048, S=2) a
+// destination's halo is [2, 2047] complex64, 32,752 bytes: well under a
+// microsecond from HBM at 3.35 TB/s or over NVLink at 450 GB/s one way.
+// Each thread moves one float2; neighbouring threads touch neighbouring
+// addresses of a row, so a peer read is whole 32-byte sectors.
 //
-// Plain C interface for ctypes; the launcher returns cudaGetLastError().
+// Plain C interface for ctypes; the functions return a cudaError_t.
 
 #include <cuda_runtime.h>
 
@@ -37,37 +47,35 @@ constexpr int kMaxBlocksX = 1024;
 
 }  // namespace
 
-// One exchange.  Shard i = t * n_sc + s.  src[i]: shard i's halo, row r at
-// src[i] + r * src_row_stride (float2 elements); dst[i]: where shard i's
-// received halo goes, [rows, len] contiguous.
+// One launch.  Destination k (blockIdx.y): src[k] is the halo it
+// receives, row r at src[k] + r * src_row_stride (float2 elements), or
+// null for a shard of t = 0 (zeros); dst[k] is where it goes, [rows, len]
+// contiguous, on the launch's card.
 struct HaloParams {
   const float2* src[kMaxShards];
   float2* dst[kMaxShards];
   long long src_row_stride;
   int rows;
   int len;
-  int n_time;
-  int n_sc;
+  int n_dst;
 };
 
 namespace {
 
 __global__ void __launch_bounds__(kThreads)
 ring_shift_right_kernel(const HaloParams p) {
-  const int i = blockIdx.y;  // destination shard
-  const int t = i / p.n_sc;
-  const int s = i - t * p.n_sc;
-  float2* __restrict__ dst = p.dst[i];
+  const int k = blockIdx.y;
+  float2* __restrict__ dst = p.dst[k];
+  const float2* __restrict__ src = p.src[k];
   const long long n = (long long)p.rows * p.len;
   const long long step = (long long)gridDim.x * kThreads;
   const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t == 0) {
+  if (src == nullptr) {
     for (long long e = first; e < n; e += step) {
       dst[e] = make_float2(0.f, 0.f);
     }
     return;
   }
-  const float2* __restrict__ src = p.src[(t - 1) * p.n_sc + s];
   for (long long e = first; e < n; e += step) {
     const long long r = e / p.len;
     const long long c = e - r * p.len;
@@ -77,20 +85,46 @@ ring_shift_right_kernel(const HaloParams p) {
 
 }  // namespace
 
-// p: the exchange (host memory; passed to the kernel by value).
-// Requires 1 <= n_time, 1 <= n_sc, n_time * n_sc <= 64, rows >= 1,
-// len >= 1, src_row_stride >= len.  Returns a cudaError_t.
+// p: one launch's destinations (host memory; passed to the kernel by
+// value), on the current device's `stream`.  Requires 1 <= n_dst <= 64,
+// rows >= 1, len >= 1, src_row_stride >= len.
 extern "C" int ring_shift_right(const HaloParams* p, void* stream) {
-  if (p == nullptr || p->n_time < 1 || p->n_sc < 1 ||
-      p->n_time * p->n_sc > kMaxShards || p->rows < 1 || p->len < 1 ||
-      p->src_row_stride < p->len) {
+  if (p == nullptr || p->n_dst < 1 || p->n_dst > kMaxShards ||
+      p->rows < 1 || p->len < 1 || p->src_row_stride < p->len) {
     return (int)cudaErrorInvalidValue;
   }
   const long long n = (long long)p->rows * p->len;
   long long gx = (n + kThreads - 1) / kThreads;
   if (gx > kMaxBlocksX) gx = kMaxBlocksX;
-  const dim3 grid((unsigned)gx, (unsigned)(p->n_time * p->n_sc));
+  const dim3 grid((unsigned)gx, (unsigned)p->n_dst);
   ring_shift_right_kernel<<<grid, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(*p);
   return (int)cudaGetLastError();
+}
+
+// Peer access: lets kernels on `device` read memory of `peer`.  Returns
+// cudaErrorPeerAccessUnsupported where cudaDeviceCanAccessPeer says no
+// (the wrapper raises; there is no other route).  Access that is already
+// enabled, by an earlier call or by PyTorch for its own cross-device
+// copies, counts as success; that call leaves
+// cudaErrorPeerAccessAlreadyEnabled as the thread's last error, which is
+// cleared here, or the next launch's cudaGetLastError() would report it.
+// The current device is restored before returning.
+extern "C" int enable_peer_access(int device, int peer) {
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  int current = 0;
+  err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    (void)cudaGetLastError();
+    err = cudaSuccess;
+  }
+  const cudaError_t restore = cudaSetDevice(current);
+  return (int)(err != cudaSuccess ? err : restore);
 }

@@ -5,16 +5,20 @@ decode's full-rate sync (parallel.decode_sharded, ``halo_impl=
 "pallas_dma"``) needs each time shard's last M-1 samples at its right
 neighbour, as the overlap-save halo of the S&C correlator.  On CUDA
 tensors ``ring_shift_right`` launches the hand-written Hopper kernel
-csrc/halo_dma.cu once per exchange, with every shard's source and
-destination pointer passed by value in the kernel's parameter struct;
-on CPU tensors it runs ``ring_shift_right_reference``, the plain list
-shift that the tests and chip_smoke.py hold the kernel against.  There
-is no fallback: a CUDA call that the kernel cannot take raises.
+csrc/halo_dma.cu, with the source and destination pointers passed by
+value in the kernel's parameter struct; on CPU tensors it runs
+``ring_shift_right_reference``, the plain list shift that the tests and
+chip_smoke.py hold the kernel against.  There is no fallback: a CUDA call
+that the kernel cannot take raises.
 
-The kernel needs every shard on one device (a mesh of logical shards on
-one card).  The peer-to-peer form for shards on several cards is not
-written: such a mesh raises ValueError, and takes the "ppermute"
-collective (parallel.collectives) instead.
+The shards may sit on one card (logical shards) or on several.  Each
+destination pulls its halo from its left neighbour's buffer, so the
+exchange is one launch per card that holds a destination shard
+(``plan_launches``), on that card's current stream; a source on another
+card is read over NVLink through its own pointer, after peer access from
+the destination card to the source card is enabled (``peer_pairs``).
+The TPU kernel's symmetric push, its wait for its own send and receive
+and the masking of its wrap-around copy are not carried over.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ import functools
 import torch
 
 MAX_SHARDS = 64  # the kernel's parameter struct holds this many pointers
+# cudaErrorPeerAccessUnsupported, what csrc/halo_dma.cu's
+# enable_peer_access returns where cudaDeviceCanAccessPeer says no
+_PEER_UNSUPPORTED = 217
 
 
 class _Params(ctypes.Structure):
@@ -35,8 +42,7 @@ class _Params(ctypes.Structure):
                 ("src_row_stride", ctypes.c_longlong),
                 ("rows", ctypes.c_int),
                 ("len", ctypes.c_int),
-                ("n_time", ctypes.c_int),
-                ("n_sc", ctypes.c_int)]
+                ("n_dst", ctypes.c_int)]
 
 
 def _grid(parts, mesh):
@@ -56,14 +62,65 @@ def ring_shift_right_reference(parts, mesh):
              for s in range(n_sc)] for t in range(n_time)]
 
 
+def plan_launches(devices) -> list:
+    """The kernel's launches for shards on ``devices``, a [n_time][n_sc]
+    grid of torch.device (a Mesh's ``devices``, or the halos' own): one
+    (device, [(t, s), ...]) per device that holds a shard, in time-major
+    order of first appearance.  Every shard is a destination (those of
+    t = 0 receive zeros), so a mesh on one card is one launch and a mesh
+    over k cards k launches."""
+    groups: dict = {}
+    for t, row in enumerate(devices):
+        for s, d in enumerate(row):
+            groups.setdefault(torch.device(d), []).append((t, s))
+    return list(groups.items())
+
+
+def peer_pairs(devices) -> list:
+    """The (destination device, source device) pairs whose peer access
+    the exchange needs: shard (t, s) reads shard (t-1, s)'s halo, for
+    t >= 1, where the two devices differ; each pair once, in time-major
+    order of first appearance."""
+    pairs: dict = {}
+    for t in range(1, len(devices)):
+        for s, d in enumerate(devices[t]):
+            dst, src = torch.device(d), torch.device(devices[t - 1][s])
+            if dst != src:
+                pairs.setdefault((dst, src), None)
+    return list(pairs)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _lib():
     from rub_mimo_tpu_torch.kernels import _build
 
-    fn = _build.load("halo_dma").ring_shift_right
-    fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("halo_dma")
+    lib.ring_shift_right.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+    lib.ring_shift_right.restype = ctypes.c_int
+    lib.enable_peer_access.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.enable_peer_access.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _peer_access(device: int, peer: int) -> int:
+    """enable_peer_access's result for (card, peer), asked once."""
+    return _lib().enable_peer_access(device, peer)
+
+
+def _enable_peer(dst: torch.device, src: torch.device) -> None:
+    """Where trouble is likely (1), peer access: the destination card's
+    kernel reads the source card's memory, which needs peer access from
+    dst to src.  Enabled once per pair; a pair the hardware cannot join
+    raises, with no other route."""
+    err = _peer_access(dst.index, src.index)
+    if err == _PEER_UNSUPPORTED:
+        raise ValueError(f"ring_shift_right: {dst} cannot access {src}'s "
+                         "memory (cudaDeviceCanAccessPeer is 0); the kernel "
+                         "reads a neighbour's halo through peer access")
+    if err != 0:
+        raise RuntimeError(f"ring_shift_right: enabling peer access from "
+                           f"{dst} to {src} failed: CUDA error {err}")
 
 
 def _check(flat) -> None:
@@ -88,43 +145,87 @@ def _check(flat) -> None:
                          "out of range")
 
 
+def _event_on(stream) -> torch.cuda.Event:
+    ev = torch.cuda.Event()
+    ev.record(stream)
+    return ev
+
+
 def ring_shift_right(parts, mesh):
     """parts[t][s]: shard (t, s)'s complex64 [S, H] halo (rows may be a
-    strided view, e.g. ``local[:, -H:]``).  Returns the per-shard
-    [S, H] halos received: shard (t-1, s)'s for t > 0, zeros for t = 0."""
+    strided view, e.g. ``local[:, -H:]``), on its shard's device.
+    Returns the per-shard [S, H] halos received, each on its shard's
+    device: shard (t-1, s)'s for t > 0, zeros for t = 0.
+
+    On CUDA tensors the kernel runs once per device that holds a shard
+    (``plan_launches``), and ``ring_shift_right.launches`` counts those
+    launches: any mesh on one card 1; a (4, 1) mesh on four cards 4 (card
+    0's launch only writes zeros); a (2, 2) mesh's "sc" column 0 on cards
+    0 and 2 (what the sharded decode's stage A exchanges) 2."""
     n_time, n_sc = _grid(parts, mesh)
     flat = [x for row in parts for x in row]
     devices = {x.device for x in flat}
     if devices == {torch.device("cpu")}:
         return ring_shift_right_reference(parts, mesh)
-    if len(devices) != 1:
-        raise ValueError("ring_shift_right: the kernel needs every shard on "
-                         f"one device, got {sorted(map(str, devices))}; use "
-                         "the ppermute collective across devices")
-    dev = flat[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"ring_shift_right: no kernel for {dev}")
-    n = n_time * n_sc
-    if n > MAX_SHARDS:
-        raise ValueError(f"ring_shift_right: {n} shards, the kernel takes at "
-                         f"most {MAX_SHARDS}")
+    if any(d.type != "cuda" for d in devices):
+        if len(devices) == 1:
+            raise ValueError(f"ring_shift_right: no kernel for "
+                             f"{flat[0].device}")
+        raise ValueError("ring_shift_right: the plain version needs every "
+                         "shard on one device (the CPU), the kernel every "
+                         f"shard on CUDA devices; got "
+                         f"{sorted(map(str, devices))}")
     _check(flat)
+    grid = [[x.device for x in row] for row in parts]
+    plan = plan_launches(grid)
+    for dev, shards in plan:
+        if len(shards) > MAX_SHARDS:
+            raise ValueError(f"ring_shift_right: {len(shards)} shards on "
+                             f"{dev}, the kernel takes at most {MAX_SHARDS} "
+                             "a card")
+    for dst, src in peer_pairs(grid):
+        _enable_peer(dst, src)
     S, H = flat[0].shape
-    out = torch.empty((n, S, H), dtype=torch.complex64, device=dev)
-    p = _Params()
-    for i, x in enumerate(flat):
-        p.src[i] = x.data_ptr()
-        p.dst[i] = out[i].data_ptr()
-    p.src_row_stride = max(flat[0].stride(0), H)
-    p.rows, p.len, p.n_time, p.n_sc = S, H, n_time, n_sc
-    with torch.cuda.device(dev):
-        err = _kernel_fn()(ctypes.byref(p),
-                           torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ring_shift_right kernel launch failed: CUDA "
-                           f"error {err}")
-    ring_shift_right.launches += 1
-    return [[out[t * n_sc + s] for s in range(n_sc)] for t in range(n_time)]
+    stride = max(flat[0].stride(0), H)
+    out = [[None] * n_sc for _ in range(n_time)]
+    for dev, shards in plan:
+        # where trouble is likely (3), launch context: each launch runs
+        # under its own card, on that card's current stream, and its
+        # parameters hold only that card's destinations and their sources
+        recv = torch.empty((len(shards), S, H), dtype=torch.complex64,
+                           device=dev)
+        p = _Params()
+        p.src_row_stride, p.rows, p.len, p.n_dst = stride, S, H, len(shards)
+        peers = {}
+        for k, (t, s) in enumerate(shards):
+            p.dst[k] = recv[k].data_ptr()
+            out[t][s] = recv[k]
+            if t > 0:
+                src = parts[t - 1][s]
+                p.src[k] = src.data_ptr()
+                if src.device != dev:
+                    peers.setdefault(src.device, None)
+        stream = torch.cuda.current_stream(dev)
+        with torch.cuda.device(dev):
+            # where trouble is likely (2), ordering across cards: a source
+            # halo is written on its own card's stream, so this card's
+            # stream waits for that stream before the read ...
+            for c in peers:
+                stream.wait_event(_event_on(torch.cuda.current_stream(c)))
+            err = _lib().ring_shift_right(ctypes.byref(p), stream.cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"ring_shift_right kernel launch failed "
+                                   f"on {dev}: CUDA error {err}")
+            ring_shift_right.launches += 1
+            # ... and the source card's stream waits for the read before
+            # anything after it, so the caching allocator cannot hand the
+            # source's memory to new work on that card while this card
+            # still reads it (the TPU kernel's rdma.wait())
+            if peers:
+                done = _event_on(stream)
+                for c in peers:
+                    torch.cuda.current_stream(c).wait_event(done)
+    return out
 
 
 ring_shift_right.launches = 0

@@ -13,8 +13,9 @@ lax collectives:
     of the fire) falls back to the full-rate stage (``_sync_stage``)
     when its exactness flag is raised.  The full-rate stage takes its
     (M-1)-sample left halo from K8 (kernels.halo_dma, ``halo_impl=
-    "pallas_dma"``) or from the ppermute collective, the metric of every
-    shard's [halo | block] from K6 in one launch (rows stacked), the
+    "pallas_dma"``; one launch per card, pulling across cards by peer
+    access) or from the ppermute collective, the metric of every shard's
+    [halo | block] from K6 in one launch per card (rows stacked), the
     cross-shard run-start carry from an all_gather prefix max, and
     elects the first fire with pmin / psum.  With sync_fallback, the S0
     cross-correlation (``_xcorr_stage``) elects its best peak likewise.
@@ -560,8 +561,10 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
     halo_impl: "ppermute" (the collective; the coarse stage A where it
     applies) or "pallas_dma" (K8 for the full-rate stage A's halo, which
     it then always takes, as in the JAX package; every shard on one
-    device).  input_format: "complex" takes the blocks of shard_capture,
-    "planes" the (re, im) blocks of shard_capture_planes.  Returns
+    device, or every shard on CUDA devices: one launch per card, reading
+    across cards by peer access).  input_format: "complex" takes the
+    blocks of shard_capture, "planes" the (re, im) blocks of
+    shard_capture_planes.  Returns
     ``fn(blocks)`` or ``fn(re_blocks, im_blocks)`` -> ShardedDecodeResult
     on the mesh's home device."""
     check_config(cfg, "build_sharded_decoder")
@@ -576,11 +579,13 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
     if input_format not in ("complex", "planes"):
         raise ValueError(f"unknown input_format {input_format!r}")
     devices = set(mesh.devices.flat)
-    if halo_impl == "pallas_dma" and n_time > 1 and len(devices) > 1:
-        raise ValueError("halo_impl='pallas_dma' needs every shard on one "
-                         "device (K8's peer-to-peer form is not written); "
-                         f"the mesh spans {sorted(map(str, devices))}")
     on_cuda = all(d.type == "cuda" for d in devices)
+    if (halo_impl == "pallas_dma" and n_time > 1 and len(devices) > 1
+            and not on_cuda):
+        raise ValueError("halo_impl='pallas_dma' needs every shard on one "
+                         "device or every shard on CUDA devices (K8 pulls "
+                         "a neighbour's halo from its card by peer access); "
+                         f"the mesh spans {sorted(map(str, devices))}")
     if on_cuda:  # full float32 products, as make_decoder sets them
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
