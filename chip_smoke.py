@@ -12,9 +12,11 @@ and holds each against its plain PyTorch version: K1 and K2 on seeded
 random payloads (the operating point, one frame per block, M = 64 and
 4096, an odd CP with an unaligned plane, 3 and 4 streams, 2 to 64
 points; the persistent grids printed), K6 on a seeded random capture
-and the operating-point capture, K5 on six captures (the operating
+and the operating-point capture, K5 on eight captures (the operating
 point, the earliest fire at full width and at M=64, a fire in the last
-tile, noise only, 10^5 leading zeros), K7 on complex64 and float32 payloads (bit for bit), K4
+chunk of that frame and of the operating point's, noise only, 10^5
+leading zeros, and seeded noise of the operating point's length, which
+never fires), K7 on complex64 and float32 payloads (bit for bit), K4
 at three widths and point counts and on the symbols the "xla" decode
 hands it, K3 and K2 on seeded random symbols, K8 bit for bit on seeded
 random halos of four one-card meshes and on the operating point's own
@@ -289,12 +291,25 @@ def _union_us(events) -> float:
     return busy_us
 
 
+def _kernel_name(name: str) -> str:
+    """A device event's kernel name without namespace, arguments and
+    return type ("sc_sync_scan", "Memset")."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.strip().removeprefix("void ")[:60]
+
+
 def device_busy(fn, n: int = 5, tries: int = 3) -> dict:
     """torch.profiler over n calls of fn: the card's busy ms per call (the
     union of its kernel and copy intervals; across cards, of any card's,
     with each card's own in ``busy_ms_by_card``) and kernels per call.  A
     session that recorded no device activity is run again, up to
-    ``tries`` sessions; busy is None when none recorded any."""
+    ``tries`` sessions; busy is None when none recorded any.  On one card
+    every call runs the same device events, so a session whose count
+    does not split into the n calls lost some and is run again too;
+    there the events in start order split into the n calls:
+    ``busy_ms_median`` is the median of the calls' busy times.
+    ``kernels_us`` is each kernel's (and memset's or copy's) median µs
+    per launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -307,16 +322,31 @@ def device_busy(fn, n: int = 5, tries: int = 3) -> dict:
                 fn()
             sync_all()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if dev:
+        cards = {e.device_index for e in dev}
+        if dev and (len(cards) > 1 or len(dev) % n == 0):
             break
     by_card: dict = {}
     for e in dev:
         by_card.setdefault(e.device_index, []).append(e)
     kernels = [e for e in dev if "memcpy" not in e.name.lower()
                and "memset" not in e.name.lower()]
+    per_call = None
+    if dev and len(by_card) == 1 and len(dev) % n == 0:
+        ev = sorted(dev, key=lambda e: e.time_range.start)
+        k = len(ev) // n
+        per_call = [_union_us(ev[i:i + k]) / 1e3
+                    for i in range(0, len(ev), k)]
+    by_name: dict = {}
+    for e in dev:
+        by_name.setdefault(_kernel_name(e.name), []).append(
+            e.time_range.elapsed_us())
     return {"busy_ms": _union_us(dev) / n / 1e3 if dev else None,
+            "busy_ms_median": (None if per_call is None
+                               else statistics.median(per_call)),
             "busy_ms_by_card": {str(c): _union_us(v) / n / 1e3
                                 for c, v in sorted(by_card.items())},
+            "kernels_us": {k: statistics.median(v)
+                           for k, v in sorted(by_name.items())},
             "kernels": len(kernels) / n,
             "top_kernels_us": sorted(
                 ((e.name[:60], e.time_range.elapsed_us()) for e in kernels),
@@ -410,11 +440,13 @@ def check_sync(name: str, x: torch.Tensor, cfg) -> dict:
     ref = k5.sc_sync_reference(*args)
     torch.cuda.synchronize()
     cfo = [float(torch.angle((-c).sum()) / np.pi) for c in (got[3], ref[3])]
-    tile = k5._kernel().sc_sync_tile_len(cfg.M)
+    chunk = k5.chunk_len(cfg.M)
     t_star = int(ref[1])
     out = {"case": name, "T": x.shape[-1], "M": cfg.M,
            "synced": bool(ref[0]), "t_star": t_star,
-           "tile": t_star // tile, "last_tile": (x.shape[-1] - 1) // tile,
+           "chunk": t_star // chunk, "last_chunk": (x.shape[-1] - 1) // chunk,
+           "chunks": k5.sc_sync_fused.chunks,
+           "chunks_scanned": int(k5.sc_sync_fused.chunks_scanned),
            "starts": ref[2].tolist(), "kernel_t_star": int(got[1]),
            "kernel_starts": got[2].tolist(), "dcfo": abs(cfo[0] - cfo[1]),
            "corr_abs_err": float((got[3] - ref[3]).abs().max())}
@@ -881,7 +913,7 @@ def main() -> None:
     k6_cmp = check_metric(cap, cfg.M, thr)
     emit({"phase": "k6_vs_plain", "case": "operating_point", **k6_cmp})
 
-    # ---- phase 4: K5 vs plain on six captures ----
+    # ---- phase 4: K5 vs plain on eight captures ----
     short = cfg.replace(pid_max=20)  # the widths of cfg, a short payload
 
     def capture(c, **kw):
@@ -893,20 +925,36 @@ def main() -> None:
     first = check_sync("delay_64", x64, cfg)
     tiny = tiny_config(bit_exact=False)
     first_m64 = check_sync("delay_64_M64", capture(tiny, delay=64), tiny)
-    require(first_m64["tile"] == 0, f"no fire in the first tile: {first_m64}")
-    # the same frame, cut to end 5 samples short of t*'s tile end
-    tile = k5._kernel().sc_sync_tile_len(cfg.M)
-    t_end = max(first["tile"] * tile + tile - 5, first["t_star"] + 1)
-    last = check_sync("fire_in_last_tile", x64[:, :t_end].contiguous(), cfg)
-    require(last["synced"] and last["tile"] == last["last_tile"],
-            f"no fire in the last tile: {last}")
+    require(first_m64["chunk"] == 0,
+            f"no fire in the first chunk: {first_m64}")
+    # the same frame and the operating point's, each cut to end 5 samples
+    # short of the end of t*'s chunk
+    chunk = k5.chunk_len(cfg.M)
+    for name, x, fire in (("fire_in_last_chunk", x64, first),
+                          ("fire_in_last_chunk_operating_point", cap,
+                           k5_cmp)):
+        t_end = max(fire["chunk"] * chunk + chunk - 5, fire["t_star"] + 1)
+        last = check_sync(name, x[:, :t_end].contiguous(), cfg)
+        require(last["synced"] and last["chunk"] == last["last_chunk"],
+                f"no fire in the last chunk: {last}")
     none = check_sync("noise_only", noise, cfg)
     require(not none["synced"], "noise-only capture fired")
     zeros = check_sync("leading_zeros_1e5", torch.nn.functional.pad(
         capture(short, delay=300), (100_000, 0)), cfg)
     require(all(r["synced"] for r in (k5_cmp, first, first_m64, zeros)),
             "a capture with a frame did not sync")
+    require(k5_cmp["chunks_scanned"] < k5_cmp["chunks"],
+            f"the scan did not stop after the fire: {k5_cmp}")
     del noise
+    # seeded noise of the operating point's length: K5's whole scan
+    rng = np.random.default_rng(8)
+    no_fire = torch.as_tensor(
+        (rng.standard_normal(cap.shape) + 1j * rng.standard_normal(cap.shape))
+        .astype(np.complex64), device=dev)
+    k5_none = check_sync("no_fire_operating_length", no_fire, cfg)
+    require(not k5_none["synced"]
+            and k5_none["chunks_scanned"] == k5_none["chunks"],
+            f"the no-fire capture: {k5_none}")
 
     # ---- phase 5: the main path at the reference operating point ----
     dec = rx.make_decoder(cfg, device=dev, input_format="planes")
@@ -1358,10 +1406,11 @@ def main() -> None:
     # the card's busy time per call, kernel work only; CUDA events (which
     # add the host's launch work) stand in where the profiler records no
     # device activity, and "timer" says which one each time is
-    dev_ms, timer = {}, {}
+    dev_ms, timer, prof = {}, {}, {}
     for name, fns in calls.items():
-        busy = [None if f is None else device_busy(f, n=10)["busy_ms"]
-                for f in fns]
+        prof[name] = [None if f is None else device_busy(f, n=10)
+                      for f in fns]
+        busy = [None if p is None else p["busy_ms"] for p in prof[name]]
         timer[name] = ["profiler" if b is not None else
                        None if f is None else "cuda_events"
                        for f, b in zip(fns, busy)]
@@ -1387,10 +1436,25 @@ def main() -> None:
             "bound_by": "bytes",
             **launch_device_us(lambda: k8.ring_shift_right(
                 xc["k8"][1], xc["k8"][0]), "ring_shift_right")}
+    # K5 kernel by kernel (its scan, its resolve and the memset of its
+    # counters) over the same 10 calls as its row, at the operating point
+    # (the fire at t* = 7,147 stops the scan), and on the no-fire capture
+    # (the whole scan)
+    k5_split = {}
+    for case, p, chk in (
+            ("operating_point", prof["sc_sync"][0], k5_cmp),
+            ("no_fire", device_busy(lambda: k5.sc_sync_fused(
+                no_fire, cfg.M, cfg.cp_len, thr), n=10), k5_none)):
+        k5_split[case] = {
+            key: p[key] for key in ("busy_ms", "busy_ms_median",
+                                    "kernels_us")} | {
+            key: chk[key] for key in ("chunks", "chunks_scanned")}
+    k5_geometry = k5.scan_geometry(S, T, M)
     emit({"phase": "kernel_device_ms", "card": card, "profiled_calls": 10,
           **{name: {"kernel": k, "plain": p, "library": lib,
                     "timer": timer[name]}
              for name, (k, p, lib) in dev_ms.items()},
+          "sc_sync_split": k5_split, "sc_sync_geometry": k5_geometry,
           "ring_shift_right_peer": k8_peer})
 
     # ---- phase 12b: each payload_impl's whole tail on the card ----
@@ -1491,8 +1555,10 @@ def main() -> None:
                           tail_flops(S, n_sym, M, K_op, fft=False)),
         "demap": bound(k4_y.numel() * (8 + 4),
                        4.0 * len(ztab) * k4_y.numel()),
-        # the S&C metric: ~18 operations per sample and stream
-        "sc_sync": bound(nbytes(cap), 18.0 * cap.numel()),
+        # the S&C metric, ~18 operations per sample and stream, on the
+        # samples up to t* (the capture when nothing fires)
+        "sc_sync": bound(S * (k5_cmp["t_star"] + 1) * cap.element_size(),
+                         18.0 * S * (k5_cmp["t_star"] + 1)),
         "sc_metric": bound(nbytes(cap) + 4 * cap.numel(),
                            18.0 * cap.numel()),
         "cp_strip": bound(2 * k7_read, 0.0),
@@ -1520,6 +1586,7 @@ def main() -> None:
         "cp_strip": cases["cp_strip"]["max_abs_err"],
         "ring_shift_right": k8_err,
     }
+    no_fire_bound = bound(nbytes(no_fire), 18.0 * no_fire.numel())
     # K4's integer decisions: its mismatches and their largest top-2 margin
     k1_shard_bound = bound(
         2 * S * n_shard * M * 4 + nbytes(r.W, r.normalize_gain)
@@ -1539,6 +1606,24 @@ def main() -> None:
                  "warm_event_ms": k12["payload_fused"]["warm_ms"],
                  "grid": geometry["payload_fused"]["grid"],
                  "blocks_per_sm": geometry["payload_fused"]["blocks_per_sm"]},
+             "sc_sync": {
+                 "no_fire": {
+                     "ms": k5_split["no_fire"]["busy_ms"],
+                     "bound_ms": no_fire_bound["bound_ms"],
+                     "bound_share": (
+                         None if k5_split["no_fire"]["busy_ms"] is None
+                         else no_fire_bound["bound_ms"]
+                         / k5_split["no_fire"]["busy_ms"])},
+                 "t_star": k5_cmp["t_star"],
+                 "kernels_us": k5_split["operating_point"]["kernels_us"],
+                 "kernels_us_no_fire": k5_split["no_fire"]["kernels_us"],
+                 "chunks": k5_split["operating_point"]["chunks"],
+                 "chunks_scanned": k5_split["operating_point"][
+                     "chunks_scanned"],
+                 "chunks_scanned_no_fire": k5_split["no_fire"][
+                     "chunks_scanned"],
+                 "grid": k5_geometry["grid"],
+                 "blocks_per_sm": k5_geometry["blocks_per_sm"]},
              "demap": {"mismatches": k4_cmp["mismatches"],
                        "max_mismatch_margin": max(
                            k4_cmp["mismatch_margins"], default=0.0)},

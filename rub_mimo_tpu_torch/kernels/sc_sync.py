@@ -2,16 +2,19 @@
 
 Port of rub_mimo_tpu/kernels/sc_sync.py::sc_sync_fused.  On CUDA tensors
 ``sc_sync_fused`` launches the hand-written Hopper kernel csrc/sc_sync.cu
-(three launches on the current stream: per-tile metric and above-threshold
-bits, the all-streams fire with a cross-tile carry of the last
-below-threshold index, and the run starts and correlation at t*; see the
+(two launches on the current stream: a persistent scan that takes chunks
+of the capture in order, writes each chunk's above-threshold bits, its
+first and last below-threshold index and its first fire past its head,
+and stops after the fire; then one block that settles the chunks' heads
+with the carry and writes t*, the run starts and the correlation; see the
 source note); on CPU tensors it runs ``sc_sync_reference``, the plain
 version the tests and chip_smoke.py hold the kernel against.  There is no
 fallback: a CUDA call that the kernel cannot take, or whose build or
 launch fails, raises.  Nothing is read back to the host.
 
 ``plateau_scan`` is the plain plateau state machine, shared with the full
-scan of sync.schmidl_cox.
+scan of sync.schmidl_cox.  ``chunk_scan_emulation`` replays the kernel's
+two launches on a metric for the CPU tests.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from rub_mimo_tpu_torch.kernels import sc_metric as k6
 
 MAX_STREAMS = 8
+NO_INDEX = 0x7FFFFFFF  # the kernel's "none": no below sample, no fire
 
 
 def plateau_scan(metric: torch.Tensor, cp_len: int, threshold: float,
@@ -64,6 +68,78 @@ def sc_sync_reference(x: torch.Tensor, M: int, cp_len: int,
     return synced, t_star, starts, corr[:, t_star]
 
 
+def chunk_scan_emulation(metric: torch.Tensor, cp_len: int,
+                         threshold: float, chunk: int, grid: int = 1):
+    """The kernel's two launches replayed on metric [S, T] with chunks of
+    ``chunk`` positions; only tests use it.
+
+    Launch 1 hands out chunks in capture order to ``grid`` resident
+    blocks, modelled as waves of ``grid`` tickets that each read the bound
+    as it stood when the wave began; a chunk that starts past it is not
+    scanned, and the scan stops there.  A scanned chunk records each
+    stream's first and last below-threshold index and lowers the bound to
+    its first body fire (t >= c0 + cp + 1, where every stream is above on
+    [t - cp - 1, t]).  Launch 2 takes each chunk's carry as the exclusive
+    prefix max of the earlier chunks' last below, finds the first head
+    fire h = max(c0, max carry + cp + 2) (if h <= c0 + cp, h < T and h
+    lies before every stream's first below in the chunk), and sets t* =
+    min(bound, h); the run starts at t* come from the carry and the bits
+    of t*'s chunk.
+
+    Returns (synced, t_star, run_start[S] at t*, chunks scanned), the
+    first three as ``plateau_scan`` gives them."""
+    S, T = metric.shape
+    C = chunk
+    n_chunks = -(-T // C)
+    above = metric > threshold  # NaN > thr is False, as in C
+    idx = torch.arange(T)
+    first = torch.full((S, n_chunks), NO_INDEX, dtype=torch.int64)
+    last = torch.full((S, n_chunks), -1, dtype=torch.int64)
+    bound, scanned = NO_INDEX, 0
+    for w0 in range(0, n_chunks, grid):
+        seen = bound
+        wave = [k for k in range(w0, min(w0 + grid, n_chunks))
+                if k * C <= seen]
+        if not wave:
+            break
+        for k in wave:
+            c0, end = k * C, min(k * C + C, T)
+            up, t = above[:, c0:end], idx[c0:end]
+            below = torch.where(~up, t, torch.full_like(t, -1))
+            last[:, k] = below.max(dim=1).values
+            first[:, k] = torch.where(~up, t, torch.full_like(
+                t, NO_INDEX)).min(dim=1).values
+            # the last zero of the streams' AND before t, c0 - 1 at most
+            lz = torch.cummax(torch.where(up.all(dim=0), c0 - 1, t),
+                              dim=0).values
+            body = torch.nonzero(t - lz > cp_len + 1)
+            if body.numel():
+                bound = min(bound, int(t[body[0, 0]]))
+            scanned += 1
+    n_live = n_chunks if bound == NO_INDEX else min(n_chunks, bound // C + 1)
+    carry = torch.full((S,), -1, dtype=torch.int64)
+    head = NO_INDEX
+    for k in range(n_live):
+        c0 = k * C
+        h = max(c0, int(carry.max()) + cp_len + 2)
+        if (h <= min(c0 + cp_len, min(c0 + C, T) - 1)
+                and h < int(first[:, k].min())):
+            head = h
+            break
+        carry = torch.maximum(carry, last[:, k])
+    fire = min(head, bound)
+    synced = fire != NO_INDEX
+    t = fire if synced else 0
+    b = t // C
+    lb = last[:, :b].max(dim=1).values if b else torch.full(
+        (S,), -1, dtype=torch.int64)
+    seg = idx[b * C:t + 1]
+    lb = torch.maximum(lb, torch.where(~above[:, b * C:t + 1], seg,
+                                       torch.full_like(seg, -1))
+                       .max(dim=1).values)
+    return torch.tensor(synced), torch.tensor(t), lb + 1, scanned
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     from rub_mimo_tpu_torch.kernels import _build
@@ -71,11 +147,31 @@ def _kernel():
     lib = _build.load("sc_sync")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.sc_sync.argtypes = [P, I, I, I, I, ctypes.c_float,
-                            P, P, P, P, P, P, P, P]
+                            P, P, P, P, P, P, P, P, P]
     lib.sc_sync.restype = I
-    lib.sc_sync_tile_len.argtypes = [I]
-    lib.sc_sync_tile_len.restype = I
+    lib.sc_sync_chunk_len.argtypes = [I]
+    lib.sc_sync_chunk_len.restype = I
+    lib.sc_sync_geometry.argtypes = [I, I, I, P]
+    lib.sc_sync_geometry.restype = I
     return lib
+
+
+def chunk_len(M: int) -> int:
+    """The kernel's chunk: output positions per ticket for M."""
+    return _kernel().sc_sync_chunk_len(M)
+
+
+def scan_geometry(S: int, T: int, M: int, device=None) -> dict:
+    """Launch 1's persistent grid on a CUDA device for an [S, T] capture
+    and M (the occupancy calculator's blocks per SM x SMs, at most one
+    block per chunk).  Launches nothing."""
+    geo = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = _kernel().sc_sync_geometry(S, T, M, geo)
+    if err != 0:
+        raise RuntimeError(f"sc_sync_geometry failed: CUDA error {err}")
+    return dict(zip(("grid", "blocks_per_sm", "sms", "threads", "chunk",
+                     "smem_bytes"), geo))
 
 
 def sc_sync_fused(x: torch.Tensor, M: int, cp_len: int, threshold: float,
@@ -83,7 +179,10 @@ def sc_sync_fused(x: torch.Tensor, M: int, cp_len: int, threshold: float,
     """One-pass sync of x [S, T] complex64 with the all-streams rule:
     (synced bool, t_star int64, starts int64 [S], corr_at complex64 [S]),
     all on x's device.  ``block`` is the chunk of the plain version's
-    moving sums (CPU tensors); the kernel's tiles are its own."""
+    moving sums (CPU tensors); the kernel's chunks are its own.  After a
+    CUDA call, ``sc_sync_fused.chunks`` is its number of chunks and
+    ``sc_sync_fused.chunks_scanned`` a device int32 scalar, the chunks
+    its scan read (valid once the stream has run it)."""
     if x.device.type == "cpu":
         return sc_sync_reference(x, M, cp_len, threshold, block=block)
     if x.device.type != "cuda":
@@ -94,25 +193,29 @@ def sc_sync_fused(x: torch.Tensor, M: int, cp_len: int, threshold: float,
     S, T = x.shape
     dev = x.device
     lib = _kernel()
-    n_tiles = -(-T // lib.sc_sync_tile_len(M))
+    n_chunks = -(-T // lib.sc_sync_chunk_len(M))
     above = torch.empty((S, -(-T // 32)), dtype=torch.int32, device=dev)
-    tile_lb = torch.empty((S, n_tiles), dtype=torch.int32, device=dev)
-    tstar = torch.empty((1,), dtype=torch.int32, device=dev)
+    marks = torch.empty((2, S, n_chunks), dtype=torch.int32, device=dev)
+    state = torch.empty((65,), dtype=torch.int32, device=dev)  # 3 lines
     synced = torch.empty((), dtype=torch.bool, device=dev)
     t_star = torch.empty((), dtype=torch.int64, device=dev)
     starts = torch.empty((S,), dtype=torch.int64, device=dev)
     corr = torch.empty((S,), dtype=torch.complex64, device=dev)
     with torch.cuda.device(dev):
         err = lib.sc_sync(x.data_ptr(), S, T, M, cp_len, float(threshold),
-                          above.data_ptr(), tile_lb.data_ptr(),
-                          tstar.data_ptr(), synced.data_ptr(),
-                          t_star.data_ptr(), starts.data_ptr(),
-                          corr.data_ptr(),
+                          above.data_ptr(), marks[0].data_ptr(),
+                          marks[1].data_ptr(), state.data_ptr(),
+                          synced.data_ptr(), t_star.data_ptr(),
+                          starts.data_ptr(), corr.data_ptr(),
                           torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sc_sync kernel launch failed: CUDA error {err}")
     sc_sync_fused.launches += 1
+    sc_sync_fused.chunks = n_chunks
+    sc_sync_fused.chunks_scanned = state[64]
     return synced, t_star, starts, corr
 
 
 sc_sync_fused.launches = 0
+sc_sync_fused.chunks = 0
+sc_sync_fused.chunks_scanned = None

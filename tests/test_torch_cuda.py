@@ -234,7 +234,57 @@ def _dc_run_capture(T=60_000, late=50_000):
     return torch.as_tensor(x)
 
 
-# TINY is M=64 (4032-sample tiles), MID M=2048 (2048-sample tiles)
+def _run_into_chunk(cfg, lead: int, S: int = 2):
+    """Stream 0 constant (above from ~M on, its run crossing every chunk
+    boundary); the other streams noise, then constant from ``late`` on,
+    with ``late`` placed so that their run starts ``lead`` samples after
+    the start c0 = 3 C of a kernel chunk (C from the built kernel, the run
+    start from the plain version on the CPU).  The noise is the tail of
+    one seeded array, so the samples before ``late`` are the same for
+    every ``late``.  lead in [0, cp] starts the run in the chunk's head;
+    lead = -cp - 1 puts the fire on c0, lead = -cp on c0 + 1."""
+    C = k5.chunk_len(cfg.M)
+    c0 = 3 * C
+    rng = np.random.default_rng(5)
+    noise = (rng.standard_normal(c0 + cfg.M)
+             + 1j * rng.standard_normal(c0 + cfg.M)).astype(np.complex64)
+
+    def build(late):
+        x = np.full((S, late + 2 * C), 0.5 + 0.25j, np.complex64)
+        x[1:, :late] = noise[noise.size - late:]
+        return torch.as_tensor(x)
+
+    def run_start(x):
+        starts = k5.sc_sync_reference(x, cfg.M, cfg.cp_len,
+                                      cfg.plateau_threshold)[2]
+        return int(starts[1])
+
+    late0 = c0 - cfg.M
+    late = late0 + c0 + lead - run_start(build(late0))
+    x = build(late)
+    assert run_start(x) == c0 + lead
+    return x
+
+
+def _fire_in_last_chunk(cfg, x):
+    """x cut to end 5 samples short of the end of t*'s chunk."""
+    C = k5.chunk_len(cfg.M)
+    t_star = int(k5.sc_sync_reference(x, cfg.M, cfg.cp_len,
+                                      cfg.plateau_threshold)[1])
+    return x[:, :(t_star // C + 1) * C - 5].contiguous()
+
+
+def _three_streams(x, lag: int = 40):
+    """x's two streams and stream 0 delayed by ``lag`` samples."""
+    late = torch.nn.functional.pad(x[0], (lag, 0))[:x.shape[1]]
+    return torch.stack([x[0], x[1], late])
+
+
+M4096 = ModemConfig(num_subcarriers=4096, cp_len=288, pid_max=3,
+                    bit_exact=False)
+OP_T = 2_297_248  # the reference operating point's capture length
+
+# TINY is M=64 (8128-sample chunks), MID M=2048 (6144), M4096 (4096)
 SYNC_CASES = {
     "d501": lambda: (TINY, _capture(TINY, delay=501)),
     "d130_snr30": lambda: (TINY, _capture(TINY, delay=130)),
@@ -250,7 +300,25 @@ SYNC_CASES = {
         _capture(TINY, delay=300), (100_000, 0))),
     "run_across_tiles": lambda: (TINY, _dc_run_capture()),
     "mid": lambda: (MID, _capture(MID, delay=7000)),
+    # the head rule: a run across a chunk boundary whose other stream
+    # starts in the next chunk's head; fires on and just after c0
+    "run_start_in_head_m64": lambda: (TINY, _run_into_chunk(TINY, 8)),
+    "run_start_in_head_m2048": lambda: (MID, _run_into_chunk(MID, 100)),
+    "fire_on_chunk_start_m2048": lambda: (MID, _run_into_chunk(MID, -153)),
+    "fire_in_head_m2048": lambda: (MID, _run_into_chunk(MID, -152)),
+    "fire_in_head_m4096": lambda: (M4096, _run_into_chunk(M4096, -200)),
+    "fire_in_last_chunk_m2048": lambda: (MID, _fire_in_last_chunk(
+        MID, _capture(MID, delay=7000))),
+    "fire_in_last_chunk_m64": lambda: (TINY, _fire_in_last_chunk(
+        TINY, _capture(TINY, delay=5000))),
+    "s1": lambda: (MID, _capture(MID, delay=7000)[:1].contiguous()),
+    "s3": lambda: (MID, _three_streams(_capture(MID, delay=7000))),
+    "m4096": lambda: (M4096, _capture(M4096, delay=9000)),
+    "no_fire_operating_length": lambda: (MID, torch.as_tensor(
+        (np.random.default_rng(8).standard_normal((2, OP_T, 2)))
+        .astype(np.float32).view(np.complex64)[..., 0])),
 }
+NO_FIRE = ("noise_only", "no_fire_operating_length")
 
 
 @pytest.mark.parametrize("case", list(SYNC_CASES))
@@ -269,8 +337,36 @@ def test_sc_sync_kernel_matches_plain(case):
         np.testing.assert_array_equal(n(a), n(b), err_msg=name)
     cfo = [float(torch.angle((-c).sum()) / np.pi) for c in (got[3], ref[3])]
     assert abs(cfo[0] - cfo[1]) < 1e-4
-    if case != "noise_only":
-        assert bool(got[0])
+    assert bool(got[0]) == (case not in NO_FIRE)
+    # every chunk that starts at or before t* was scanned
+    C = k5.chunk_len(cfg.M)
+    chunks = k5.sc_sync_fused.chunks
+    needed = int(ref[1]) // C + 1 if bool(ref[0]) else chunks
+    assert needed <= int(k5.sc_sync_fused.chunks_scanned) <= chunks
+
+
+def test_sc_sync_stops_after_an_early_fire():
+    """A fire in chunk 1 of a capture padded to ~510 chunks: the scan
+    reads the chunks the resident blocks had taken, about two waves of
+    the persistent grid at most, and not the rest."""
+    dev = require_cuda()
+    x = torch.nn.functional.pad(_capture(MID, delay=7000),
+                                (0, 3_000_000)).to(dev)
+    args = (x, MID.M, MID.cp_len, MID.plateau_threshold)
+    got = k5.sc_sync_fused(*args)
+    ref = k5.sc_sync_reference(*args)
+    torch.cuda.synchronize()
+    assert bool(got[0]) and int(got[1]) == int(ref[1])
+    assert torch.equal(got[2], ref[2])
+    C = k5.chunk_len(MID.M)
+    chunks, scanned = k5.sc_sync_fused.chunks, int(
+        k5.sc_sync_fused.chunks_scanned)
+    geo = k5.scan_geometry(*x.shape, MID.M, dev)
+    assert geo["chunk"] == C and chunks == -(-x.shape[1] // C)
+    assert geo["grid"] == min(chunks, geo["blocks_per_sm"] * geo["sms"])
+    assert int(ref[1]) // C + 1 <= scanned <= int(ref[1]) // C + 1 \
+        + 2 * geo["grid"]
+    assert scanned < chunks
 
 
 @pytest.mark.parametrize("M,T", [(64, 100_777), (2048, (1 << 20) + 777),
