@@ -11,8 +11,10 @@ the CP strip, K8 the halo exchange; one nvcc per source, all at once)
 and holds each against its plain PyTorch version: K1 and K2 on seeded
 random payloads (the operating point, one frame per block, M = 64 and
 4096, an odd CP with an unaligned plane, 3 and 4 streams, 2 to 64
-points; the persistent grids printed), K6 on a seeded random capture
-and the operating-point capture, K5 on eight captures (the operating
+points; the persistent grids printed), K6 on a seeded random capture,
+the operating-point capture and the (4, 1) sharded full-rate stage A's
+stacked rows of it (one card's eight, and one card's two across cards;
+NaN exactly on the windows of zeros), K5 on eight captures (the operating
 point, the earliest fire at full width and at M=64, a fire in the last
 chunk of that frame and of the operating point's, noise only, 10^5
 leading zeros, and seeded noise of the operating point's length, which
@@ -48,7 +50,10 @@ is set to 0 just before a path runs and read just after.  It decodes the
 checked-in golden capture, times the decodes and the kernels with CUDA
 events, and breaks the default decode down by stage (CUDA events per
 stage, torch.profiler for the device's busy time), and times each
-payload_impl's whole tail (strip to decisions) on the card, and K1 and
+payload_impl's whole tail (strip to decisions) on the card, K6 at its
+three shapes beside its persistent grid (its times before its
+redesign are quoted there, labelled as not measured by this run:
+K6_BEFORE_QUOTED), K4 on one track_channel block, K1 and
 K2 warm and after a 256 MB write evicts the L2, K1 at one (4, 1)
 shard's call, and K1 with 2 to 64 demap points, with the SM clock under
 load.  Each phase prints one JSON line; any failed check raises,
@@ -121,6 +126,16 @@ KERNELS = {
                          "rub_mimo_tpu/kernels/halo_dma.py:68"),
 }
 SHARDED_G_RTOL, SHARDED_G_ATOL = 2e-4, 2e-5  # tests/test_parallel.py
+# K6's device ms before its redesign as a persistent span scan, quoted in
+# the kernel_device_ms line and not measured by this script (the previous
+# kernel's torch.profiler busy time per call, median over 10 calls, by
+# scripts/time_k6.py --root on a checkout of the commit before it)
+K6_BEFORE_QUOTED = {
+    "measured_by_this_run": False,
+    "source": "scripts/time_k6.py --root <the commit before K6's redesign>",
+    "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+    "ms": {"operating_point": 0.053339, "sharded_stage_a": 0.053856,
+           "one_card_share": 0.0139625}}
 PAYLOAD_KERNELS = ("payload_fused_strip", "payload_fused", "eq_demap",
                    "demap", "cp_strip")
 
@@ -396,18 +411,38 @@ def drive(fn):
     return out, {name: w.launches for name, w in wrappers.items()}
 
 
-def check_metric(x: torch.Tensor, M: int, thr: float) -> dict:
-    """K6 against its plain version on capture x: the tolerance on finite
-    samples with real energy, and every above-threshold flip within
-    FLIP_BAND of the threshold."""
-    from rub_mimo_tpu_torch.kernels import sc_metric as k6
+def stacked_shards(cap: torch.Tensor, n_time: int, halo: int):
+    """The sharded full-rate stage A's K6 input on one card: shard t's
+    left halo (the last ``halo`` samples of shard t - 1, zeros for t = 0)
+    then its samples, T zero-padded to n_time * 128 per shard as
+    ``parallel.mesh.shard_capture`` pads it; [n_time * S, halo + Tloc],
+    shard-major, as ``decode_sharded._sync_stage`` stacks it."""
+    S, T = cap.shape
+    t_loc = -(-T // (n_time * 128)) * 128
+    blocks = torch.nn.functional.pad(cap, (0, n_time * t_loc - T)).view(
+        S, n_time, t_loc)
+    left = torch.nn.functional.pad(blocks[:, :-1, -halo:], (0, 0, 1, 0))
+    rows = torch.cat([left, blocks], dim=-1)  # [S, n_time, halo + Tloc]
+    return rows.transpose(0, 1).reshape(n_time * S, halo + t_loc)
 
-    got = k6.sc_metric_fused(x, M)
+
+def check_metric(x: torch.Tensor, M: int, thr: float, metric=None) -> dict:
+    """K6 (or ``metric(x, M)``, a build of it) against its plain version
+    on capture x: NaN exactly on the windows of zeros, the tolerance on
+    finite samples with real energy, and every above-threshold flip
+    within FLIP_BAND of the threshold."""
+    from rub_mimo_tpu_torch.kernels import sc_metric as k6
+    from rub_mimo_tpu_torch.utils.movsum import moving_sum
+
+    got = (metric or k6.sc_metric_fused)(x, M)
     ref = k6.sc_metric_reference(x, M)
     _, energy = k6.moving_corr_energy(x, M)
+    zeros = moving_sum((x != 0).to(torch.int64), M) == 0
     torch.cuda.synchronize()
     require(got.dtype == torch.float32 and got.shape == ref.shape,
             f"K6 output {got.dtype} {tuple(got.shape)}")
+    require(torch.equal(torch.isnan(got), zeros),
+            "K6 NaN on other samples than the windows of zeros")
     ok = torch.isfinite(ref) & (energy >= ENERGY_FLOOR * energy.median())
     g, r = got[ok], ref[ok]
     err = (g - r).abs()
@@ -415,7 +450,8 @@ def check_metric(x: torch.Tensor, M: int, thr: float) -> dict:
     big = r.abs() >= METRIC_ATOL
     flips = ((got > thr) != (ref > thr))
     flip_dist = (ref[flips] - thr).abs()
-    out = {"T": x.shape[-1], "M": M, "checked": int(ok.sum()),
+    out = {"shape": list(x.shape), "M": M, "checked": int(ok.sum()),
+           "zero_windows": int(zeros.sum()),
            "max_abs_err": float(err.max()),
            "max_rel_err": float((err[big] / r[big].abs()).max()),
            "tolerance_used": float(use.max()),
@@ -822,7 +858,7 @@ def main() -> None:
     k34._lib()
     k7._kernel_fn()
     k5._kernel()
-    k6._kernel_fn()
+    k6._kernel()
     k8._lib()
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "card": card,
@@ -898,6 +934,7 @@ def main() -> None:
     cap, tx_data, _ = simulator.simulate_capture(cfg, spec, device=dev)
     re, im = cap.real.contiguous(), cap.imag.contiguous()
     thr = cfg.plateau_threshold
+    S_cap = cap.shape[0]
 
     # ---- phase 2b: K7, K4, K3, K2 vs plain at the operating point ----
     cases = check_payload_kernels(dev, cfg)
@@ -912,6 +949,23 @@ def main() -> None:
           **check_metric(noise, cfg.M, thr)})
     k6_cmp = check_metric(cap, cfg.M, thr)
     emit({"phase": "k6_vs_plain", "case": "operating_point", **k6_cmp})
+    # the (4, 1) sharded full-rate stage A's stacked rows on one card, as
+    # the path builds them, and one card's rows of it across four cards
+    # (odd lengths; shard 0's halo is zeros); stacked_shards, which the
+    # scripts use, must build the same rows
+    from rub_mimo_tpu_torch.parallel import decode_sharded as ds
+    from rub_mimo_tpu_torch.parallel import mesh as pmesh
+    mesh41 = pmesh.make_mesh(4, 1, devices=[dev] * 4)
+    (_, rows), = ds.stage_a_rows(pmesh.shard_capture(cap, mesh41), mesh41,
+                                 cfg.M - 1, "ppermute").values()
+    stage_a = rows.reshape(-1, rows.shape[-1])
+    require(torch.equal(stacked_shards(cap, 4, cfg.M - 1), stage_a),
+            "stacked_shards differs from the sharded stage A's K6 input")
+    k6_shapes = {"operating_point": cap, "sharded_stage_a": stage_a,
+                 "one_card_share": stage_a[S_cap:2 * S_cap].contiguous()}
+    for case in ("sharded_stage_a", "one_card_share"):
+        emit({"phase": "k6_vs_plain", "case": case,
+              **check_metric(k6_shapes[case], cfg.M, thr)})
 
     # ---- phase 4: K5 vs plain on eight captures ----
     short = cfg.replace(pid_max=20)  # the widths of cfg, a short payload
@@ -1249,6 +1303,7 @@ def main() -> None:
     t_pal2 = cuda_ms(lambda: dec_pallas(re, im))
     t_dec2 = cuda_ms(lambda: dec(re, im))
     t_cfo = cuda_ms(lambda: dec_cfo(re_c, im_c))
+    t_debug = cuda_ms(lambda: dec_debug(re, im), iters=MODE_ITERS)
     t_impl = {impl: cuda_ms(lambda d=d: d(*zplanes), iters=MODE_ITERS)
               for impl, d in impl_dec.items()}
     t_mode = {name: cuda_ms(lambda d=d, p=p: d(*p), iters=MODE_ITERS)
@@ -1329,7 +1384,7 @@ def main() -> None:
           "mode_iters": MODE_ITERS,
           "decode": t_dec, "decode_sync_pallas": t_pal,
           "decode_sync_pallas_again": t_pal2, "decode_again": t_dec2,
-          "decode_cfo_config": t_cfo,
+          "decode_cfo_config": t_cfo, "decode_keep_debug": t_debug,
           "decode_mimo_2x2_zf": t_impl, "decode_mode": t_mode,
           "decode_wifi_like": t_wifi,
           "decode_sharded": t_shard, "decode_mimo_4x4_wideband": t_4x4,
@@ -1450,11 +1505,45 @@ def main() -> None:
                                     "kernels_us")} | {
             key: chk[key] for key in ("chunks", "chunks_scanned")}
     k5_geometry = k5.scan_geometry(S, T, M)
+    # K6 at the three shapes its paths give it (the full-rate scan, the
+    # one-card sharded stage A, one card's share across cards), each
+    # beside its persistent grid
+    k6_split = {}
+    for case, xk in k6_shapes.items():
+        p = prof["sc_metric"][0] if case == "operating_point" else \
+            device_busy(lambda xk=xk: k6.sc_metric_fused(xk, M), n=10)
+        b = bound(nbytes(xk) + 4 * xk.numel(), 18.0 * xk.numel())
+        k6_split[case] = {
+            "shape": list(xk.shape), "ms": p["busy_ms"],
+            "ms_median": p["busy_ms_median"],
+            "bound_ms": b["bound_ms"],
+            "bound_share": (None if p["busy_ms"] is None
+                            else b["bound_ms"] / p["busy_ms"]),
+            "geometry": k6.metric_geometry(*xk.shape, M)}
+    # K4 as track_channel launches it: one 8-frame block, [S, 8, M]
+    # symbols over the operating point's 32 points
+    rng = np.random.default_rng(126)
+    y_trk = torch.as_tensor(
+        ((rng.standard_normal((S, 8, M)) + 1j * rng.standard_normal(
+            (S, 8, M))) * 0.8).astype(np.complex64), device=dev)
+    trk_cmp = compare(None, k34.demap(y_trk, tab), y_trk,
+                      constellation.hard_demap(y_trk, tab), tab)
+    k4_track = {"shape": list(y_trk.shape), "points": len(tab),
+                "ms": device_busy(lambda: k34.demap(y_trk, tab),
+                                  n=10)["busy_ms"],
+                "event_ms": cuda_ms(lambda: k34.demap(
+                    y_trk, tab))["median_ms"],
+                "mismatches": trk_cmp["mismatches"],
+                **bound(y_trk.numel() * (8 + 4),
+                        4.0 * len(tab) * y_trk.numel())}
     emit({"phase": "kernel_device_ms", "card": card, "profiled_calls": 10,
           **{name: {"kernel": k, "plain": p, "library": lib,
                     "timer": timer[name]}
              for name, (k, p, lib) in dev_ms.items()},
           "sc_sync_split": k5_split, "sc_sync_geometry": k5_geometry,
+          "sc_metric_shapes": k6_split,
+          "sc_metric_before_quoted": K6_BEFORE_QUOTED,
+          "demap_tracking_block": k4_track,
           "ring_shift_right_peer": k8_peer})
 
     # ---- phase 12b: each payload_impl's whole tail on the card ----
@@ -1626,7 +1715,18 @@ def main() -> None:
                  "blocks_per_sm": k5_geometry["blocks_per_sm"]},
              "demap": {"mismatches": k4_cmp["mismatches"],
                        "max_mismatch_margin": max(
-                           k4_cmp["mismatch_margins"], default=0.0)},
+                           k4_cmp["mismatch_margins"], default=0.0),
+                       "tracking_block": {
+                           key: k4_track[key] for key in (
+                               "shape", "ms", "event_ms", "bound_ms")}},
+             "sc_metric": {
+                 "shapes": {case: {key: v[key] for key in (
+                     "shape", "ms", "bound_ms", "bound_share")}
+                     for case, v in k6_split.items()},
+                 "grid": k6_split["operating_point"]["geometry"]["grid"],
+                 "blocks_per_sm": k6_split["operating_point"]["geometry"][
+                     "blocks_per_sm"],
+                 "chunk": k6_split["operating_point"]["geometry"]["chunk"]},
              "ring_shift_right": {
                  "note": "bound well under 1 us: its time is launch latency"}}
     rows = {name: (launched[name], errors[name], *dev_ms[name])

@@ -17,7 +17,7 @@
 //      capture order, all S streams of a chunk to one block.  Per stream
 //      (a "job") the block forms the chunk's metric from chunk-local
 //      prefix sums over the chunk and its M-sample left halo (the
-//      arithmetic of sc_common.cuh's tile_prefix and metric_at), writes
+//      arithmetic of sc_common.cuh's note and sc_metric.cu), writes
 //      one bit per sample, above[s][t] = metric > threshold (a warp
 //      ballot per 32 samples; NaN is not above, as in C), and the
 //      chunk's first and last below-threshold index.  Then it
@@ -53,7 +53,7 @@
 // since a body fire would have lowered the bound.  After the fire each
 // resident block reads about one more chunk, and drops it after one job.
 //
-// The threshold test is sc_common.cuh's metric_at: n / d > thr with n =
+// The threshold test is K6's metric (sc_metric.cu): n / d > thr with n =
 // |corr|^2 and d = energy^2, and its zero-count rule (a window with no
 // nonzero sample is 0/0, NaN, and not above).
 //
@@ -162,8 +162,8 @@ __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// metric_at(j) > thr from the prefix sums at j (p1, e1) and at j - M/2
-// (p0) and j - M (e0), as sc_common.cuh's metric_at forms it (the
+// metric(j) > thr from the prefix sums at j (p1, e1) and at j - M/2
+// (p0) and j - M (e0), as sc_metric.cu forms the metric (the
 // zero-count rule is the caller's).
 __device__ __forceinline__ bool above_of(float2 p1, float2 p0, float e1,
                                          float e0, float thr) {
@@ -231,7 +231,7 @@ sc_sync_scan(const float2* __restrict__ x, int S, int T, int M, int cp,
         if (s == S - 1) nk = (int)atomicAdd(state + kTicket, 1u);
       }
 
-      // the prefix sums of sc_common.cuh's tile_prefix, operation for
+      // the prefix sums of sc_metric.cu, operation for
       // operation: per thread 16 consecutive samples in registers, then
       // warp shuffles, then the warps' totals in order
       // (j0 and M/2 are multiples of 16: a thread's items share one pad

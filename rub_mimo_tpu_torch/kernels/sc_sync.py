@@ -13,8 +13,10 @@ fallback: a CUDA call that the kernel cannot take, or whose build or
 launch fails, raises.  Nothing is read back to the host.
 
 ``plateau_scan`` is the plain plateau state machine, shared with the full
-scan of sync.schmidl_cox.  ``chunk_scan_emulation`` replays the kernel's
-two launches on a metric for the CPU tests.
+scan of sync.schmidl_cox; its running maximum is ``cummax``, a two-level
+scan that the sharded decode's full-rate stage A uses too.
+``chunk_scan_emulation`` replays the kernel's two launches on a metric
+for the CPU tests.
 """
 
 from __future__ import annotations
@@ -24,11 +26,30 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from rub_mimo_tpu_torch.kernels import sc_metric as k6
 
 MAX_STREAMS = 8
 NO_INDEX = 0x7FFFFFFF  # the kernel's "none": no below sample, no fire
+
+
+def cummax(x: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """torch.cummax(x, dim=-1).values of an integer [R, L] tensor as a
+    two-level scan: running maxima within chunks of ``chunk`` samples (many
+    short rows), then each chunk raised to the maximum of the chunks
+    before it.  torch.cummax alone scans each row in one thread block, and
+    a capture's rows are few and long (1.56 ms for [2, 574,336] int64 on
+    an H100)."""
+    R, L = x.shape
+    n = -(-L // chunk)
+    low = torch.iinfo(x.dtype).min
+    c = torch.cummax(F.pad(x, (0, n * chunk - L), value=low)
+                     .reshape(R * n, chunk), dim=-1).values
+    c = c.reshape(R, n, chunk)
+    before = F.pad(torch.cummax(c[:, :-1, -1], dim=-1).values, (1, 0),
+                   value=low)
+    return torch.maximum(c, before[:, :, None]).reshape(R, n * chunk)[:, :L]
 
 
 def plateau_scan(metric: torch.Tensor, cp_len: int, threshold: float,
@@ -44,8 +65,7 @@ def plateau_scan(metric: torch.Tensor, cp_len: int, threshold: float,
     q = S if quorum is None else quorum
     above = metric > threshold  # NaN > thr is False, as in C
     idx = torch.arange(T, device=metric.device).expand(S, T)
-    last_below = torch.cummax(
-        torch.where(above, torch.full_like(idx, -1), idx), dim=1).values
+    last_below = cummax(torch.where(above, torch.full_like(idx, -1), idx))
     run_start = last_below + 1
     cond = above & ((idx - run_start) > cp_len)
     fire = cond.sum(dim=0) >= q

@@ -73,6 +73,7 @@ from rub_mimo_tpu_torch.kernels import cp_strip as cp_strip_mod
 from rub_mimo_tpu_torch.kernels import halo_dma
 from rub_mimo_tpu_torch.kernels import payload_fused
 from rub_mimo_tpu_torch.kernels import sc_metric as k6
+from rub_mimo_tpu_torch.kernels.sc_sync import cummax
 from rub_mimo_tpu_torch.ofdm import constellation
 from rub_mimo_tpu_torch.parallel import collectives as coll
 from rub_mimo_tpu_torch.parallel.mesh import Mesh
@@ -125,22 +126,29 @@ def _per_block(mesh: Mesh, key, fn):
 
 
 # --------------------------------------------------------------- stage A
-def _cummax(x: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
-    """torch.cummax(x, dim=-1).values of an integer [R, L] tensor as a
-    two-level scan: running maxima within chunks of ``chunk`` samples (many
-    short rows), then each chunk raised to the maximum of the chunks
-    before it.  torch.cummax alone scans each row in one thread block, and
-    a shard's rows are few and long (1.56 ms for [2, 574,336] int64 on an
-    H100)."""
-    R, L = x.shape
-    n = -(-L // chunk)
-    low = torch.iinfo(x.dtype).min
-    c = torch.cummax(F.pad(x, (0, n * chunk - L), value=low)
-                     .reshape(R * n, chunk), dim=-1).values
-    c = c.reshape(R, n, chunk)
-    before = F.pad(torch.cummax(c[:, :-1, -1], dim=-1).values, (1, 0),
-                   value=low)
-    return torch.maximum(c, before[:, :, None]).reshape(R, n * chunk)[:, :L]
+def stage_a_rows(blocks, mesh: Mesh, H: int, halo_impl: str) -> dict:
+    """Stage A's K6 input: per device, (the time shards ts it holds,
+    [len(ts), S, H + Tloc] complex64), shard t's rows its left halo (the
+    last H samples of shard t - 1, zeros for t = 0) then blocks[t][0]."""
+    n_time = mesh.shape["time"]
+    S, Tloc = blocks[0][0].shape
+    tails = coll.for_each(mesh, lambda t, s: blocks[t][s][:, -H:])
+    if n_time > 1 and halo_impl == "pallas_dma":
+        left = halo_dma.ring_shift_right(tails, mesh)
+    else:
+        left = coll.ppermute_right(tails, mesh)  # zeros when n_time == 1
+    by_dev = {}
+    for t in range(n_time):
+        by_dev.setdefault(blocks[t][0].device, []).append(t)
+    rows = {}
+    for dev, ts in by_dev.items():
+        buf = torch.empty((len(ts), S, H + Tloc), dtype=torch.complex64,
+                          device=dev)
+        for i, t in enumerate(ts):
+            buf[i, :, :H] = left[t][0]
+            buf[i, :, H:] = blocks[t][0]
+        rows[dev] = (ts, buf)
+    return rows
 
 
 def _sync_stage(blocks, mesh: Mesh, cfg: ModemConfig, halo_impl: str):
@@ -150,24 +158,12 @@ def _sync_stage(blocks, mesh: Mesh, cfg: ModemConfig, halo_impl: str):
     n_time = mesh.shape["time"]
     S, Tloc = blocks[0][0].shape
     H = cfg.M - 1
-    tails = coll.for_each(mesh, lambda t, s: blocks[t][s][:, -H:])
-    if n_time > 1 and halo_impl == "pallas_dma":
-        left = halo_dma.ring_shift_right(tails, mesh)
-    else:
-        left = coll.ppermute_right(tails, mesh)  # zeros when n_time == 1
 
     # the metric of every shard's [left | local] from K6, the shards of
     # one device stacked as rows of one launch (rows are independent)
     L = H + Tloc
-    by_dev = {}
-    for t in range(n_time):
-        by_dev.setdefault(blocks[t][0].device, []).append(t)
     ext, metric = {}, {}
-    for dev, ts in by_dev.items():
-        buf = torch.empty((len(ts), S, L), dtype=torch.complex64, device=dev)
-        for i, t in enumerate(ts):
-            buf[i, :, :H] = left[t][0]
-            buf[i, :, H:] = blocks[t][0]
+    for ts, buf in stage_a_rows(blocks, mesh, H, halo_impl).values():
         m = k6.sc_metric_fused(buf.reshape(-1, L), cfg.M,
                                block=min(1 << 15, L)).reshape(len(ts), S, L)
         for i, t in enumerate(ts):
@@ -180,7 +176,7 @@ def _sync_stage(blocks, mesh: Mesh, cfg: ModemConfig, halo_impl: str):
         m = metric[t]
         gidx = t * Tloc + torch.arange(Tloc, device=m.device)
         above = m > thr
-        cm = _cummax(torch.where(above, -1, gidx))
+        cm = cummax(torch.where(above, -1, gidx))
         return above, gidx, cm
 
     scans = coll.for_each(mesh, scan)

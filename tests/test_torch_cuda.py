@@ -369,15 +369,55 @@ def test_sc_sync_stops_after_an_early_fire():
     assert scanned < chunks
 
 
-@pytest.mark.parametrize("M,T", [(64, 100_777), (2048, (1 << 20) + 777),
-                                 (4096, 50_000)])
-def test_sc_metric_kernel_matches_plain(M, T):
+def _span_boundary(S: int, T: int, M: int, dev) -> tuple:
+    """(row, first position) of the chunk that starts the kernel's second
+    span on dev's grid for an [S, T] capture."""
+    geo = k6.metric_geometry(S, T, M, dev)
+    row_chunks = -(-T // geo["chunk"])
+    q = S * row_chunks // geo["grid"]
+    return q // row_chunks, q % row_chunks * geo["chunk"]
+
+
+# name -> (S, T, M, zeros): zeros "stretch" is 3 M zero samples from 5000
+# on every row, "halo" the first M - 1 samples of rows 0 and 1 (a sharded
+# stage A's first shard), "lead" the first 700 samples of every row, "span"
+# M + 200 samples either side of the start of the second span.  Every case
+# longer than one chunk has more than two chunks per block on an H100's
+# grid, so that its blocks read their history from the ring
+METRIC_CASES = {
+    "m64": (2, 1_200_777, 64, "stretch"),
+    "m2048": (2, (1 << 20) + 777, 2048, "stretch"),
+    "m4096": (2, 700_001, 4096, "stretch"),
+    "s1": (1, 1_200_000, 2048, "stretch"),
+    "s8": (8, 300_000, 64, "stretch"),
+    "stacked_odd_rows": (8, 200_001, 2048, "halo"),
+    "shorter_than_one_chunk": (2, 1_500, 2048, "lead"),
+    "m32": (2, 1_200_001, 32, "stretch"),
+    "zeros_across_span_boundary": (2, (1 << 20) + 777, 2048, "span"),
+}
+
+
+@pytest.mark.parametrize("case", list(METRIC_CASES))
+def test_sc_metric_kernel_matches_plain(case):
     dev = require_cuda()
+    S, T, M, zero = METRIC_CASES[case]
     rng = np.random.default_rng(T)
-    x = torch.as_tensor((rng.standard_normal((2, T))
-                         + 1j * rng.standard_normal((2, T)))
+    x = torch.as_tensor((rng.standard_normal((S, T))
+                         + 1j * rng.standard_normal((S, T)))
                         .astype(np.complex64), device=dev)
-    x[:, 5000:5000 + 3 * M] = 0  # an all-zero stretch
+    if zero == "stretch":
+        x[:, 5000:5000 + 3 * M] = 0
+    elif zero == "halo":
+        x[:2, :M - 1] = 0
+    elif zero == "lead":
+        x[:, :700] = 0
+    else:
+        s, c0 = _span_boundary(S, T, M, dev)
+        assert c0 > 0
+        x[s, c0 - M - 200:c0 + M + 200] = 0
+    geo = k6.metric_geometry(S, T, M, dev)
+    n_chunks = S * -(-T // geo["chunk"])
+    assert T < geo["chunk"] or n_chunks > 2 * geo["grid"], (n_chunks, geo)
     before = k6.sc_metric_fused.launches
     got = k6.sc_metric_fused(x, M)
     ref = k6.sc_metric_reference(x, M)
@@ -394,6 +434,26 @@ def test_sc_metric_kernel_matches_plain(M, T):
     ok = torch.isfinite(ref) & (energy >= 1e-6 * energy.median())
     np.testing.assert_allclose(n(got[ok]), n(ref[ok]),
                                rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("S,T,M", [(2, 2_297_248, 2048), (8, 576_383, 2048),
+                                   (2, 576_383, 2048), (1, 1, 32),
+                                   (2, 50_000, 4096), (65535, 100, 64)])
+def test_sc_metric_geometry(S, T, M):
+    """The persistent grid: the occupancy calculator's blocks per SM x
+    SMs at most, one block per chunk at most, chunks of chunk_len(M)
+    whose window (C + M samples) lies within the plain version's block
+    of 2^15 + M; two blocks per SM up to M = 2048."""
+    dev = require_cuda()
+    geo = k6.metric_geometry(S, T, M, dev)
+    C = geo["chunk"]
+    assert C == k6.chunk_len(M) and C + M == k6.window_len(M)
+    assert C + M <= (1 << 15) + M and C >= 32
+    n_chunks = S * -(-T // C)
+    full = geo["blocks_per_sm"] * geo["sms"]
+    assert geo["grid"] == min(n_chunks, full) <= full
+    assert geo["threads"] * 16 == k6.window_len(M)
+    assert geo["blocks_per_sm"] >= (2 if M <= 2048 else 1)
 
 
 def test_sync_kernels_reject_what_they_cannot_take():

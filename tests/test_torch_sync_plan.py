@@ -125,3 +125,17 @@ def test_head_fire_found_without_a_body_fire_before_it():
     got = k5.chunk_scan_emulation(metric, 5, THR, 64, 1)
     assert bool(got[0]) and int(got[1]) == 194
     assert 194 // 64 == 3 and 194 <= 3 * 64 + 5
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("L", [1, 1023, 1024, 1025, 5000])
+def test_two_level_cummax_matches_torch_cummax(L, dtype):
+    """plateau_scan's running maximum (chunks of 1024) against one
+    torch.cummax, on rows shorter than, equal to and across chunks."""
+    rng = np.random.default_rng(L)
+    x = torch.as_tensor(rng.integers(-5000, 5000, size=(3, L)),
+                        dtype=dtype)
+    x[1] = -1  # a row with no index, as where every sample is above
+    got = k5.cummax(x)
+    assert got.dtype == dtype
+    assert torch.equal(got, torch.cummax(x, dim=-1).values)
