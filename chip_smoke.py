@@ -20,7 +20,10 @@ chunk of that frame and of the operating point's, noise only, 10^5
 leading zeros, and seeded noise of the operating point's length, which
 never fires), K7 on complex64 and float32 payloads (bit for bit), K4
 at three widths and point counts and on the symbols the "xla" decode
-hands it, K3 and K2 on seeded random symbols, K8 bit for bit on seeded
+hands it, K3 and K2 on seeded random symbols, K4 and K3 on every
+modulation, BPSK to QAM256, on symbols that reach each path of their
+decision-region search (demap_by_modulation: against the plain version
+and, bit for bit, against the kernel's own full scan), K8 bit for bit on seeded
 random halos of four one-card meshes and on the operating point's own
 halos.  Then it decodes the reference operating point end to end
 through ``make_decoder(..., input_format="planes")`` on each path this
@@ -368,6 +371,14 @@ def device_busy(fn, n: int = 5, tries: int = 3) -> dict:
                 key=lambda x: -x[1])[:5]}
 
 
+def profiled_us(fn) -> float:
+    """The device's busy µs per call of fn, median of 10 profiled calls
+    (their mean where the profiler's events do not split into calls)."""
+    busy = device_busy(fn, n=10)
+    ms = busy["busy_ms_median"] or busy["busy_ms"]
+    require(ms is not None, "the profiler recorded no device activity")
+    return ms * 1e3
+
 def launch_counts() -> dict:
     """The launch-counted wrappers of the port's kernels, by kernel."""
     return {name: getattr(importlib.import_module(
@@ -582,6 +593,58 @@ def check_payload_kernels(dev, cfg) -> dict:
                                 max_abs_err=res2["max_abs_err"])
     return out
 
+
+
+def demap_by_modulation(dev, cfg, cases) -> dict:
+    """K4 and K3 (up to 64 points) on each modulation, BPSK to QAM256, at
+    the operating point's [2, 1000, M]: the symbols are
+    eq_demap.probe_symbols (cells of one to four candidates, cell edges,
+    ties, outside the grid's box, 0, NaN, Inf), K3's equalized values
+    too (X = G y per subcarrier with the K3 case's W gain = G^-1).  Each
+    is held against its plain version (decisions equal but at near-ties,
+    K3's symbols within SIG_REL_TOL of RMS) and against the kernel's own
+    full scan of every point (``demap_full_scan``, equal bit for bit);
+    device µs per call of each (torch.profiler, median of 10)."""
+    from rub_mimo_tpu_torch import Modulation
+    from rub_mimo_tpu_torch.kernels import eq_demap as k34
+    from rub_mimo_tpu_torch.ofdm import constellation
+
+    X3, W, gain, _ = cases["eq_demap"]["args"]
+    S, n_sym, M = X3.shape
+    G = torch.linalg.inv(W * gain[:, None, None])
+    out = {}
+    for mod in (Modulation.BPSK, Modulation.QPSK, Modulation.QAM16,
+                Modulation.ARB32OPT, Modulation.QAM64, Modulation.QAM256):
+        tab = constellation.table(mod)
+        y = torch.as_tensor(k34.probe_symbols(tab, S * n_sym * M, len(tab)),
+                            device=dev).reshape(S, n_sym, M)
+        got = k34.demap(y, tab)
+        res = {"points": len(tab),
+               "k4": compare(None, got, y, constellation.hard_demap(y, tab),
+                             tab)}
+        require(torch.equal(got, k34.demap_full_scan(y, tab)),
+                f"K4 {mod.name}: the region search differs from the full "
+                "scan")
+        res["k4"].update(
+            full_scan_equal=True,
+            us=profiled_us(lambda: k34.demap(y, tab)),
+            full_scan_us=profiled_us(lambda: k34.demap_full_scan(y, tab)))
+        res["k4"].pop("mismatch_margins")
+        if len(tab) <= k34.MAX_EQ_POINTS:
+            X = torch.einsum("mij,jkm->ikm", G, torch.where(
+                torch.isfinite(y), y, 0)).contiguous()
+            sig, data = k34.eq_demap(X, W, gain, tab)
+            res["k3"] = compare(sig, data,
+                                *k34.eq_demap_reference(X, W, gain, tab), tab)
+            require(torch.equal(data, k34.demap_full_scan(sig, tab)),
+                    f"K3 {mod.name}: the region search differs from the "
+                    "full scan")
+            res["k3"].update(
+                full_scan_equal=True,
+                us=profiled_us(lambda: k34.eq_demap(X, W, gain, tab)))
+            res["k3"].pop("mismatch_margins")
+        out[mod.name] = res
+    return out
 
 def check_halos(k8, mesh, parts) -> float:
     """K8 against its plain version on the halos parts[t][s]: equal bit
@@ -938,6 +1001,14 @@ def main() -> None:
 
     # ---- phase 2b: K7, K4, K3, K2 vs plain at the operating point ----
     cases = check_payload_kernels(dev, cfg)
+    emit({"phase": "demap_by_modulation", "card": card,
+          "shape": list(cases["eq_demap"]["args"][0].shape),
+          "geometry": {
+              "eq_demap": k34.launch_geometry("eq_demap", 2, cfg.M,
+                                              cfg.pid_max),
+              "demap": k34.launch_geometry(
+                  "demap", 2 * cfg.pid_max * cfg.M, 0)},
+          "modulations": demap_by_modulation(dev, cfg, cases)})
 
     # ---- phase 3: K6 vs plain (seeded random, operating point) ----
     rng = np.random.default_rng(20)

@@ -1,13 +1,13 @@
-// Device code shared by the payload kernels (sm_90a): the demap constants
-// in shared memory, the nearest-neighbour hard demap and the
-// per-subcarrier S x S equalize.
+// Device code shared by the payload kernels (sm_90a): one step of the
+// nearest-neighbour hard demap and the per-subcarrier S x S equalize.
 //
 //   K3 eq_demap.cu (eq_demap)  equalize + demap after a separate FFT
 //   K4 eq_demap.cu (demap)     hard demap alone
 //
-// The fused tails K1 (payload_fused_strip.cu) and K2 (payload_fused.cu)
-// run their frame block from payload_fft.cuh, which calls equalize and
-// demap_step with the points in its parameter struct.  Every kernel
+// K3 and K4 demap through demap_search.cuh's region search.  The fused
+// tails K1 (payload_fused_strip.cu) and K2 (payload_fused.cu) run their
+// frame block from payload_fft.cuh, which calls equalize and demap_step
+// with the points in its parameter struct.  Every kernel
 // rounds alike: the equalize sums j = 0..S-1 in order and scales by the
 // gain last; the demap scores fma(Re(y), cr[q], fma(Im(y), ci[q], -cb[q]))
 // over the points in order from -inf with a strict '>', so the first
@@ -21,19 +21,6 @@
 
 namespace payload {
 
-// Copy the demap constants, [3, n] rows (Re c, Im c, |c|^2 / 2), into
-// shared memory.  Every thread of the block calls it; the caller
-// synchronizes before reading.
-__device__ __forceinline__ void load_points(const float* __restrict__ points,
-                                            int n, float* cr, float* ci,
-                                            float* cb) {
-  for (int q = threadIdx.x; q < n; q += blockDim.x) {
-    cr[q] = points[q];
-    ci[q] = points[n + q];
-    cb[q] = points[2 * n + q];
-  }
-}
-
 // One point of the demap's search: the score of (ar, ai) against the
 // point (cr, ci, cb) replaces (best, idx) when strictly larger.
 __device__ __forceinline__ void demap_step(float ar, float ai, float cr,
@@ -44,17 +31,6 @@ __device__ __forceinline__ void demap_step(float ar, float ai, float cr,
     best = score;
     idx = q;
   }
-}
-
-// argmax_q ar cr[q] + ai ci[q] - cb[q], the first maximum winning.
-__device__ __forceinline__ int demap(float ar, float ai, const float* cr,
-                                     const float* ci, const float* cb,
-                                     int n) {
-  float best = -CUDART_INF_F;
-  int idx = 0;
-  for (int q = 0; q < n; ++q)
-    demap_step(ar, ai, cr[q], ci[q], cb[q], q, best, idx);
-  return idx;
 }
 
 // eq[o] = (sum_j W[sc][o][j] X[j]) * g for o < S; W is [M][S][S].

@@ -200,20 +200,6 @@ def launch_geometry(kernel: str, S: int, M: int, n_sym: int,
                      "smem_bytes", "two_stage"), list(geo)))
 
 
-@functools.lru_cache(maxsize=16)
-def _points(table_bytes: bytes, device: torch.device) -> torch.Tensor:
-    """The demap constants [3, K] on the device, cached per table (a host
-    to device copy per call would synchronize the stream)."""
-    t = np.frombuffer(table_bytes, dtype=np.complex64)
-    return torch.as_tensor(constellation.demap_planes(t), device=device)
-
-
-def device_points(table: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The demap constants of ``table`` as K3 and K4 take them: [3, K]
-    float32 rows (Re c, Im c, |c|^2 / 2) on ``device``."""
-    return _points(np.asarray(table, np.complex64).tobytes(), device)
-
-
 @functools.lru_cache(maxsize=8)
 def _twiddles(M: int, device: torch.device) -> torch.Tensor:
     """``pass_twiddles(M)`` on ``device`` (at least one entry)."""

@@ -623,6 +623,111 @@ def test_eq_demap_kernel_matches_plain(S, n_sym, M):
     assert none_sig is None and torch.equal(d2, data)
 
 
+
+ALL_MODS = [Modulation.BPSK, Modulation.QPSK, Modulation.QAM16,
+            Modulation.QAM64, Modulation.QAM256, Modulation.ARB32OPT]
+
+
+def _probe(mod, n, seed, dev):
+    return torch.as_tensor(k34.probe_symbols(constellation.table(mod), n,
+                                             seed), device=dev)
+
+
+@pytest.mark.parametrize("mod", ALL_MODS)
+@pytest.mark.parametrize("n,offset", [(4099, 0), (4099, 1), (5, 1), (1, 0),
+                                      (2, 1), (3, 0)])
+def test_demap_kernel_by_modulation(mod, n, offset):
+    """K4 on symbols that reach every path of the search (cells of one to
+    four candidates, cell edges, ties, outside the box, 0, NaN, Inf), at
+    a numel that is no multiple of four, from a 16-byte aligned tensor
+    and from a slice that is only 8-byte aligned."""
+    dev = require_cuda()
+    table = constellation.table(mod)
+    y = _probe(mod, max(n, 64), n + offset, dev)
+    buf = torch.zeros(offset + n, dtype=torch.complex64, device=dev)
+    buf[offset:] = y[:n]
+    y = buf[offset:]
+    assert (y.data_ptr() % 16 != 0) == bool(offset)
+    before = k34.demap.launches
+    got = k34.demap(y, table)
+    ref = constellation.hard_demap(y, table)
+    torch.cuda.synchronize()
+    assert k34.demap.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == y.shape
+    assert_decisions_match(got, ref, y, table)
+    assert torch.equal(got, k34.demap_full_scan(y, table))
+
+
+@pytest.mark.parametrize("mod", ALL_MODS)
+def test_region_search_equals_full_scan(mod):
+    """The region search decides as the kernel's full scan, bit for bit,
+    on K4's symbols (inside and outside the box) and on the symbols K3
+    equalizes (its decisions against the full scan of its rx_sig)."""
+    dev = require_cuda()
+    table = constellation.table(mod)
+    y = _probe(mod, 100_003, 5, dev).reshape(1, -1)
+    box = float(k34.region_geometry(table)[0])
+    inside = torch.maximum(y.real.abs(), y.imag.abs()) < box
+    assert 0 < int(inside.sum()) < y.numel()  # both paths taken
+    assert torch.equal(k34.demap(y, table), k34.demap_full_scan(y, table))
+    if len(table) <= k34.MAX_EQ_POINTS:
+        X, W, gain = _eq_case(dev, 2, 9, 1000, 17)
+        sig, data = k34.eq_demap(X * np.float32(0.03), W, gain, table)
+        assert torch.equal(data, k34.demap_full_scan(sig, table))
+
+
+@pytest.mark.parametrize("mod", [m for m in ALL_MODS
+                                 if m != Modulation.QAM256])
+@pytest.mark.parametrize("S,n_sym,M", [(1, 1, 1), (2, 3, 129), (3, 1, 257),
+                                       (4, 5, 2048), (2, 1000, 64)])
+def test_eq_demap_kernel_by_modulation(mod, S, n_sym, M):
+    """K3 with 1-4 streams, odd M and one frame, its equalized symbols
+    the probe symbols of the search (X = G y per subcarrier, W gain =
+    G^-1), against its plain version; rx_sig within 1e-5 of RMS."""
+    dev = require_cuda()
+    table = constellation.table(mod)
+    _, W, gain = _eq_case(dev, S, 1, M, S + M)
+    y = _probe(mod, S * n_sym * M + 64, M, dev)[:S * n_sym * M]
+    G = torch.linalg.inv(W * gain[:, None, None])
+    X = torch.einsum("mij,jkm->ikm", G, y.reshape(S, n_sym, M)).contiguous()
+    X = torch.where(torch.isfinite(X), X, 0)
+    before = k34.eq_demap.launches
+    sig, data = k34.eq_demap(X, W, gain, table)
+    ref_sig, ref_data = k34.eq_demap_reference(X, W, gain, table)
+    torch.cuda.synchronize()
+    assert k34.eq_demap.launches == before + 1
+    rms = float(torch.sqrt(torch.mean(ref_sig.abs() ** 2)))
+    assert float((sig - ref_sig).abs().max()) <= 1e-5 * rms
+    assert_decisions_match(data, ref_data, ref_sig, table)
+    assert torch.equal(data, k34.demap_full_scan(sig, table))
+
+
+@pytest.mark.parametrize("S,M,n_sym", [(1, 1, 1), (2, 2048, 1000),
+                                       (3, 129, 7), (4, 4096, 3),
+                                       (2, 64, 100_000)])
+def test_eq_demap_geometry(S, M, n_sym):
+    """K3's grid is eq_block_plan at the occupancy calculator's blocks per
+    SM: every (frame, subcarrier) once (tests/test_torch_demap_plan.py),
+    about one wave, with at least 24 warps an SM."""
+    dev = require_cuda()
+    geo = k34.launch_geometry("eq_demap", S, M, n_sym, device=dev)
+    plan = k34.eq_block_plan(M, n_sym, geo["blocks_per_sm"], geo["sms"])
+    assert (geo["tiles"], geo["ranges"], geo["threads"]) == (
+        plan["tiles"], plan["ranges"], plan["threads"])
+    assert geo["blocks_per_sm"] * geo["threads"] >= 768  # 24 warps an SM
+
+
+@pytest.mark.parametrize("n,head", [(1, 0), (7, 1), (4_096_000, 0),
+                                    (4_096_001, 1), (10**9, 0)])
+def test_demap_geometry(n, head):
+    dev = require_cuda()
+    geo = k34.launch_geometry("demap", n, head, device=dev)
+    plan = k34.demap_plan(n, head, geo["blocks_per_sm"], geo["sms"])
+    assert (geo["per_thread"], geo["grid"]) == (plan["per_thread"],
+                                                plan["grid"])
+    assert geo["per_thread"] == (4 if n > 10**6 else 1)
+    assert geo["threads"] == k34.DEMAP_THREADS
+
 # (S, n_sym, M, modulation, offset of x in complex samples): every M of
 # the gate, 1-4 streams, 2-64 points, an unaligned x (8-byte copies)
 K2_CASES = {
