@@ -48,12 +48,26 @@ four, ``pallas_dma``, with ppermute (n, 1) beside it) and, on four,
 mimo_4x4_wideband (4, 1) with ``pallas_dma``, each equal to the single
 decode with SER 0, and serves 8 captures over the cards and over one
 card, each equal to its single decode; on one card it prints
-{"phase": "across_cards", "run": false, "cards": 1}.  Every launch count
-is set to 0 just before a path runs and read just after.  It decodes the
+{"phase": "across_cards", "run": false, "cards": 1}.  It serves, through
+``make_serving_decoder``, eight operating-point captures (the serving
+seeds, stacked as planes) from one CUDA graph of the decode (K5, then
+K1) and one capture each of the CFO config, mimo_2x2_zf "xla" (K5, K7,
+K4), track_channel (K5, K7, K4 per block) and mimo_4x4_wideband with the
+full-rate sync (K6, K1): each capture equal to the eager decode with the
+same options and SER 0, one replay's kernels counted by name with
+torch.profiler, per-capture times beside the eager decodes, and the
+device's busy time and idle share of a replay; it runs an eager decode
+of each of those paths under torch.cuda.set_sync_debug_mode("error")
+(no_host_sync), and decode_all on a full-width capture of two bursts
+(both found, SER 0, the input unchanged) and on a one-burst capture.
+Every launch count is set to 0 just before a path runs and read just
+after.  It decodes the
 checked-in golden capture, times the decodes and the kernels with CUDA
 events, and breaks the default decode down by stage (CUDA events per
 stage, torch.profiler for the device's busy time), and times each
-payload_impl's whole tail (strip to decisions) on the card, K6 at its
+payload_impl's whole tail (strip to decisions) on the card, the payload
+window's gather at a device start against the copy at host ints it
+replaced (payload_window), K6 at its
 three shapes beside its persistent grid (its times before its
 redesign are quoted there, labelled as not measured by this run:
 K6_BEFORE_QUOTED), K4 on one track_channel block, K1 and
@@ -64,7 +78,8 @@ so the exit code is non-zero.  The line before the last lists every
 kernel with its launches on its path, its error against its plain
 version, its time, the plain version's time, its bound on this card, its
 share of that bound and, where one PyTorch call computes the same
-function, that call's time.  The last line is the device summary
+function, that call's time; the line before it has the script's wall
+seconds.  The last line is the device summary
 {"ok": true, "device": {...}}.  There is no CPU path: without a CUDA
 device the script exits non-zero before printing anything.
 """
@@ -141,6 +156,18 @@ K6_BEFORE_QUOTED = {
            "one_card_share": 0.0139625}}
 PAYLOAD_KERNELS = ("payload_fused_strip", "payload_fused", "eq_demap",
                    "demap", "cp_strip")
+# kernel -> the names of its device kernels (a graph's launches are
+# counted from torch.profiler's kernel names: a replay calls no wrapper)
+DEVICE_KERNELS = {
+    "payload_fused_strip": ("payload_fused_strip_kernel",),
+    "payload_fused": ("payload_fused_kernel",),
+    "eq_demap": ("eq_demap_kernel",),
+    "demap": ("demap_kernel",),
+    "sc_sync": ("sc_sync_scan", "sc_sync_resolve"),
+    "sc_metric": ("sc_metric_kernel",),
+    "cp_strip": ("cp_strip_kernel",),
+    "ring_shift_right": ("ring_shift_right_kernel",),
+}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -327,7 +354,7 @@ def device_busy(fn, n: int = 5, tries: int = 3) -> dict:
     there the events in start order split into the n calls:
     ``busy_ms_median`` is the median of the calls' busy times.
     ``kernels_us`` is each kernel's (and memset's or copy's) median µs
-    per launch."""
+    per launch, ``launches_by_name`` its launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -365,6 +392,8 @@ def device_busy(fn, n: int = 5, tries: int = 3) -> dict:
                                 for c, v in sorted(by_card.items())},
             "kernels_us": {k: statistics.median(v)
                            for k, v in sorted(by_name.items())},
+            "launches_by_name": {k: len(v) / n
+                                 for k, v in sorted(by_name.items())},
             "kernels": len(kernels) / n,
             "top_kernels_us": sorted(
                 ((e.name[:60], e.time_range.elapsed_us()) for e in kernels),
@@ -420,6 +449,18 @@ def drive(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def graph_launches(launches_by_name: dict) -> dict:
+    """Each kernel's launches per call from device_busy's
+    ``launches_by_name``: the fewest of its device kernels' (K5 is a scan
+    and a resolve), rounded (a profiler session may lose an event or two
+    at its edges)."""
+    def per_name(name):
+        return sum(v for k, v in launches_by_name.items()
+                   if k.split("<")[0].split("::")[-1] == name)
+    return {k: round(min(per_name(name) for name in names))
+            for k, names in DEVICE_KERNELS.items()}
 
 
 def stacked_shards(cap: torch.Tensor, n_time: int, halo: int):
@@ -888,6 +929,122 @@ def across_cards(cfg, cap, tx_data, r, qcfg, qcap, qtx, rq):
             "k8": (mesh_x, op_halos)}
 
 
+def serve_path(name: str, cfg, planes, txs, kw: dict, expect: dict,
+               eager: dict, iters: int = MODE_ITERS) -> dict:
+    """Serve the [B, S, T] planes stacks through
+    ``make_serving_decoder(cfg, input_format="planes", **kw)``: one CUDA
+    graph of the decode, replayed per capture.  The first call (its two
+    warm-up decodes and the capture) runs with every launch count at 0;
+    one replay's kernels, counted by name with torch.profiler, must be
+    at least one launch of each kernel in ``expect`` (kernel -> launches a
+    decode makes), and none of the others.  Each capture is held against the
+    eager decode with the same options: integer fields equal, G within
+    rtol 1e-4 / atol 1e-6, SER 0 on every stream.  Times (CUDA events,
+    medians of ``iters``): the served batch per capture (input copy,
+    replay, output copies), the replay alone, and each ``eager`` decoder
+    (label -> planes decoder) on capture 0; the device's busy time and
+    idle share of one replay."""
+    from rub_mimo_tpu_torch.pipeline import rx
+
+    serve = rx.make_serving_decoder(cfg, device="cuda",
+                                    input_format="planes", **kw)
+    got, counts = drive(lambda: serve(*planes))
+    require(all(counts[k] >= 1 for k in expect),
+            f"serving {name}: the captured decode launched {counts}")
+    same = rx.make_decoder(cfg, device="cuda", input_format="planes", **kw)
+    B = planes[0].shape[0]
+    ser = []
+    for i in range(B):
+        ref = same(planes[0][i], planes[1][i])
+        for f in INT_FIELDS:
+            require(torch.equal(getattr(got, f)[i], getattr(ref, f)),
+                    f"serving {name}: capture {i}'s {f} differs from the "
+                    "eager decode")
+        np.testing.assert_allclose(got.G[i].cpu().numpy(),
+                                   ref.G.cpu().numpy(), rtol=1e-4, atol=1e-6)
+        ser.append(stream_ser(got.rx_data[i], txs[i], cfg))
+        require(all(x == 0.0 for x in ser[-1]),
+                f"serving {name}: capture {i} SER {ser[-1]}")
+    graph = serve.graphs[tuple(planes[0].shape[1:])]
+    t_served = cuda_ms(lambda: serve(*planes), iters=iters)
+    t_replay = cuda_ms(graph.graph.replay, iters=iters)
+    busy = device_busy(graph.graph.replay)
+    in_graph = graph_launches(busy["launches_by_name"])
+    require(all((in_graph[k] >= 1) == (k in expect) for k in KERNELS),
+            f"serving {name}: one replay launched {in_graph}, expected "
+            f"{expect}")
+    t_eager = {label: cuda_ms(lambda d=d: d(planes[0][0], planes[1][0]),
+                              iters=iters) for label, d in eager.items()}
+    per_capture = t_served["median_ms"] / B
+    busy_ms = busy["busy_ms_median"] or busy["busy_ms"]
+    out = {"phase": "serving", "path": name, "card": card_line(),
+           "batch": B, "capture": list(planes[0].shape[1:]),
+           "options": kw, "launches_first_call": counts,
+           "launches_per_replay": in_graph,
+           "launches_per_decode_eager": expect,
+           "kernels_per_replay": busy["kernels"],
+           "kernels_per_replay_by_name": busy["launches_by_name"],
+           "longest_kernels_us": busy["top_kernels_us"],
+           "ser_percent": ser, "int_fields_equal_eager": True,
+           "served_ms_per_capture": per_capture,
+           "served_batch_ms": t_served, "replay_ms": t_replay,
+           "device_busy_ms_per_replay": busy_ms,
+           "device_idle_share_replay": (
+               None if busy_ms is None
+               else 1.0 - busy_ms / t_replay["median_ms"]),
+           "device_idle_share_served": (
+               None if busy_ms is None else 1.0 - busy_ms / per_capture),
+           "eager_ms": t_eager}
+    emit(out)
+    del serve, graph, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def no_host_sync(paths: dict) -> dict:
+    """One eager decode of each path (label -> (planes decoder, planes))
+    under torch.cuda.set_sync_debug_mode("error"), after a warm-up
+    decode, with the mode shown to raise on a host read first."""
+    out = {}
+    for label, (dec, planes) in paths.items():
+        dec(*planes)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            try:
+                int(planes[0].sum())
+                raised = False
+            except RuntimeError:
+                raised = True
+            require(raised, "set_sync_debug_mode('error') let a read pass")
+            r = dec(*planes)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        require(bool(r.synced), f"no_host_sync {label}: did not sync")
+        out[label] = "no synchronizing call"
+    emit({"phase": "no_host_sync", "mode": "error", "decodes": out})
+    return out
+
+
+def two_bursts(cfg, dev, spec):
+    """A full-width capture with two bursts of cfg's frame, the second a
+    replay window and three symbols after the first's start (as
+    tests/test_multiburst.py builds them): (capture, tx data of each)."""
+    from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.ofdm import framegen
+
+    h = simulator.draw_channel(spec, cfg.num_streams, cfg.num_streams)
+    data = [framegen.generate_payload_symbols(cfg, seed=k) for k in (1, 2)]
+    tx = [framegen.transmit_frame(cfg, d, device=dev) for d in data]
+    gap = cfg.window_len + 3 * cfg.symbol_len
+    S = cfg.num_streams
+    z = [torch.zeros((S, n), dtype=torch.complex64, device=dev) for n in
+         (300, max(gap - tx[0].shape[-1], 64), 500)]
+    cap = simulator.apply_channel(torch.cat([z[0], tx[0], z[1], tx[1], z[2]],
+                                            dim=-1), h, spec, cfg)
+    return cap, data
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
@@ -908,6 +1065,7 @@ def main() -> None:
     from rub_mimo_tpu_torch.ofdm import constellation
     from rub_mimo_tpu_torch.pipeline import report, rx
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -1247,7 +1405,7 @@ def main() -> None:
                                       track_block_frames=8, **base), spec42),
         "track_phase": (ModemConfig(track_phase=True, **base), spec42),
     }
-    mode_counts, mode_runs = {}, {}
+    mode_counts, mode_runs, mode_tx = {}, {}, {}
     for name, (mcfg, mspec) in mode_paths.items():
         mcap, mtx, _ = simulator.simulate_capture(mcfg, mspec, device=dev)
         mplanes = (mcap.real.contiguous(), mcap.imag.contiguous())
@@ -1261,6 +1419,7 @@ def main() -> None:
         require((rm.Y is not None) == (mcfg.detector == Detector.ML),
                 f"{name}: Y kept {rm.Y is not None}")
         mode_runs[name] = (d, mplanes)
+        mode_tx[name] = mtx
 
     # ---- phase 9d: wifi_like at its own width, card vs CPU ----
     wcfg, wspec = presets.wifi_like()
@@ -1366,6 +1525,100 @@ def main() -> None:
     # ---- phase 9h: across cards (2 or more cards) ----
     xc = across_cards(cfg, cap, tx_data, r, qcfg, qcap, qtx, rq)
     del qcap, rq
+
+    # ---- phase 9i: serving from CUDA graphs ----
+    # the operating point on the serving seeds, eight captures as planes
+    # (each capture's decode replayed from one graph: K5, then K1), then
+    # the CFO config (K5 with the S0 fallback, K1), mimo_2x2_zf "xla"
+    # (K5, K7, K4), track_channel (K5, K7, K4 per block) and
+    # mimo_4x4_wideband with the full-rate sync (K6, K1; K5 refuses a
+    # sync_quorum), one capture each, beside their eager decodes
+    serve_caps, serve_tx = [], []
+    for seed in SERVING_SEEDS:
+        c, t_x, _ = simulator.simulate_capture(
+            cfg, simulator.ChannelSpec(snr_db=30.0, delay=5000, seed=seed),
+            device=dev)
+        serve_caps.append(c)
+        serve_tx.append(t_x)
+    stack = torch.stack(serve_caps)
+    serve_planes = (stack.real.contiguous(), stack.imag.contiguous())
+    del serve_caps, stack
+    track = mode_paths["track_channel"][0]
+    trk_planes = mode_runs["track_channel"][1]
+
+    def eager(c, **kw):
+        return rx.make_decoder(c, device=dev, input_format="planes", **kw)
+
+    def one(planes):
+        return tuple(p[None] for p in planes)
+
+    pallas_xla = dict(sync_impl="pallas", payload_impl="xla")
+    served = {
+        "operating_point": serve_path(
+            "operating_point", cfg, serve_planes, serve_tx,
+            dict(sync_impl="pallas"),
+            {"sc_sync": 1, "payload_fused_strip": 1},
+            {"eager_sync_pallas": dec_pallas, "eager_default": dec}),
+        "cfo_config": serve_path(
+            "cfo_config", cfg_cfo, one((re_c, im_c)), [tx_c],
+            dict(sync_impl="pallas"),
+            {"sc_sync": 1, "payload_fused_strip": 1},
+            {"eager_sync_pallas": eager(cfg_cfo, sync_impl="pallas"),
+             "eager_default": dec_cfo}),
+        "mimo_2x2_zf_xla": serve_path(
+            "mimo_2x2_zf_xla", zcfg, one(zplanes), [ztx], pallas_xla,
+            {"sc_sync": 1, "cp_strip": 1, "demap": 1},
+            {"eager_sync_pallas": eager(zcfg, **pallas_xla),
+             "eager_default": impl_dec["xla"]}),
+        "track_channel": serve_path(
+            "track_channel", track, one(trk_planes),
+            [mode_tx["track_channel"]], dict(sync_impl="pallas"),
+            {"sc_sync": 1, "cp_strip": 1,
+             "demap": track.pid_max // track.track_block_frames + 1},
+            {"eager_sync_pallas": eager(track, sync_impl="pallas"),
+             "eager_default": mode_runs["track_channel"][0]}),
+        "mimo_4x4_wideband": serve_path(
+            "mimo_4x4_wideband", qcfg, one(qplanes), [qtx],
+            dict(sync_impl="xla"),
+            {"sc_metric": 1, "payload_fused_strip": 1},
+            {"eager_sync_xla": eager(qcfg, sync_impl="xla"),
+             "eager_default": qdec}),
+    }
+
+    # ---- phase 9j: the served paths read nothing back ----
+    no_host_sync({
+        "operating_point": (dec_pallas, (serve_planes[0][0],
+                                         serve_planes[1][0])),
+        "cfo_config": (eager(cfg_cfo, sync_impl="pallas"), (re_c, im_c)),
+        "mimo_2x2_zf_xla": (eager(zcfg, **pallas_xla), zplanes),
+        "track_channel": (eager(track, sync_impl="pallas"), trk_planes),
+        "mimo_4x4_wideband": (eager(qcfg, sync_impl="xla"), qplanes)})
+    del serve_planes
+
+    # ---- phase 9k: decode_all on two bursts and on one ----
+    burst_spec = simulator.ChannelSpec(snr_db=35.0, delay=0, trailing=0,
+                                       seed=5)
+    cap2, data2 = two_bursts(cfg, dev, burst_spec)
+    kept = cap2.clone()
+    bursts = rx.decode_all(cap2, cfg, device=dev, max_bursts=4)
+    require(torch.equal(cap2, kept), "decode_all modified its input")
+    require(len(bursts) == 2, f"decode_all found {len(bursts)} bursts of 2")
+    require(int(bursts[1].sync_index) > int(bursts[0].sync_index),
+            "decode_all: the second burst is not after the first")
+    burst_ser = [stream_ser(b.rx_data, d, cfg) for b, d in zip(bursts, data2)]
+    require(all(x == 0.0 for sr in burst_ser for x in sr),
+            f"decode_all: SER {burst_ser}")
+    single = rx.decode_all(cap, cfg, device=dev, max_bursts=4)
+    require(len(single) == 1, f"decode_all found {len(single)} bursts of 1")
+    emit({"phase": "decode_all", "capture": list(cap2.shape),
+          "bursts": len(bursts),
+          "sync_index": [int(b.sync_index) for b in bursts],
+          "ser_percent": burst_ser, "input_unchanged": True,
+          "one_burst_capture": {"capture": list(cap.shape),
+                                "bursts": len(single)},
+          "ms": cuda_ms(lambda: rx.decode_all(cap2, cfg, device=dev),
+                        iters=3, warmup=1)})
+    del cap2, kept, bursts, single
 
     # ---- phase 10: times (CUDA events, medians over TIMING_ITERS) ----
     # the two sync paths in turns: default, pallas, pallas, default
@@ -1638,6 +1891,38 @@ def main() -> None:
                     "event_ms": cuda_ms(f)["median_ms"]}
              for impl, f in tails.items()}})
 
+    # the payload window at a device start (the decode's gather: one
+    # index for both planes) against the copy at host ints it replaced,
+    # on the operating point's planes and start
+    cstart_dev = (torch.clamp(r.sync_index, 0, T) + r.decode_start - sym)
+    plen = n_sym * sym
+
+    def window_gather():
+        win = rx.window_index(cstart_dev, plen, T, dev)
+        return [rx.gather_window(p, *win) for p in (re, im)]
+
+    def window_copy():
+        lo = min(max(-cstart, 0), plen)
+        hi = max(min(T - cstart, plen), lo)
+        outs = []
+        for p in (re, im):
+            o = torch.empty((S, plen), dtype=p.dtype, device=dev)
+            o[:, :lo] = 0
+            o[:, lo:hi] = p[:, cstart + lo:cstart + hi]
+            o[:, hi:] = 0
+            outs.append(o)
+        return outs
+
+    require(all(torch.equal(a, b) for a, b in zip(window_gather(),
+                                                   window_copy())),
+            "the payload window's gather differs from its copy")
+    gather_us, copy_us = profiled_us(window_gather), profiled_us(window_copy)
+    emit({"phase": "payload_window", "card": card, "planes": [2, S, plen],
+          "gather_device_us": gather_us, "copy_device_us": copy_us,
+          "gather_minus_copy_us": gather_us - copy_us,
+          "gather_event_ms": cuda_ms(window_gather)["median_ms"],
+          "copy_event_ms": cuda_ms(window_copy)["median_ms"]})
+
     # ---- phase 12c: K1 and K2 warm and cold, and K1 on one shard ----
     # CUDA events around single calls, cold after a 256 MB write evicts
     # the L2; K1 also at one (4, 1) shard's call: 263 frames of the
@@ -1800,10 +2085,19 @@ def main() -> None:
                  "chunk": k6_split["operating_point"]["geometry"]["chunk"]},
              "ring_shift_right": {
                  "note": "bound well under 1 us: its time is launch latency"}}
+    # launches of each kernel in one replay of each served path's graph
+    for name in KERNELS:
+        per = {path: v["launches_per_replay"][name]
+               for path, v in served.items()
+               if v["launches_per_replay"][name]}
+        if per:
+            extra.setdefault(name, {})["launches_per_served_capture"] = per
     rows = {name: (launched[name], errors[name], *dev_ms[name])
             for name in KERNELS}
     for name, row in rows.items():
         require(row[0] >= 1, f"{name} was not launched on its path")
+    emit({"phase": "wall", "card": card,
+          "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{
         "name": name,
         "route": "cuda",

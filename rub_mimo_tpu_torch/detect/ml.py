@@ -23,6 +23,7 @@ import torch
 
 from rub_mimo_tpu_torch.config import ModemConfig, Modulation
 from rub_mimo_tpu_torch.ofdm import constellation
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,15 +36,21 @@ def combo_table(modulation: Modulation, n_tx: int):
     return t[idx].astype(np.complex64), idx.astype(np.int32)
 
 
+@device_constant
+def _combos_on(modulation: Modulation, n_tx: int, device: torch.device):
+    """``combo_table`` on ``device``, made once per device."""
+    pts, idx = combo_table(modulation, n_tx)
+    return (torch.as_tensor(pts, device=device),
+            torch.as_tensor(idx, device=device))
+
+
 def ml_detect(Y: torch.Tensor, G_occ: torch.Tensor, cfg: ModemConfig,
               block: int = 16) -> torch.Tensor:
     """Y: [n_sym, rx, n_sc]; G_occ: [n_sc, rx, tx] -> per-stream symbol
     decisions [n_sym, tx, n_sc] int32."""
     n_sym = Y.shape[0]
     n_tx = G_occ.shape[-1]
-    pts, idx = combo_table(cfg.modulation, n_tx)
-    pts = torch.as_tensor(pts, device=Y.device)
-    idx = torch.as_tensor(idx, device=Y.device)
+    pts, idx = _combos_on(cfg.modulation, n_tx, Y.device)
     GS = torch.einsum("krt,ct->krc", G_occ, pts)     # [n_sc, rx, C]
     e = torch.sum(GS.abs() ** 2, dim=1)              # [n_sc, C]
     out = []
@@ -60,6 +67,4 @@ def ml_equalize(Y: torch.Tensor, G_occ: torch.Tensor, cfg: ModemConfig,
     """ML decisions remodulated to constellation points,
     [n_sym, tx, n_sc] like the linear equalizers' output."""
     d = ml_detect(Y, G_occ, cfg, block=block)
-    tab = torch.as_tensor(np.array(constellation.table(cfg.modulation)),
-                          device=Y.device)
-    return tab[d.long()]
+    return constellation.table_on(cfg.modulation, Y.device)[d.long()]

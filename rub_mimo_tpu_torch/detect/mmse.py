@@ -20,9 +20,11 @@ def mmse_weights(G: torch.Tensor,
     N = G.shape[-1]
     Gh = torch.conj(G.transpose(-1, -2))
     A = G @ Gh + noise_var * torch.eye(N, dtype=G.dtype, device=G.device)
-    # W0 = G^H A^{-1} == solve(A^T, conj(G))^T
-    W0 = torch.linalg.solve(A.transpose(-1, -2), torch.conj(G)).transpose(
-        -1, -2)
+    # W0 = G^H A^{-1} == solve(A^T, conj(G))^T; solve_ex: solve's values
+    # without its error check, which reads the status back and drains a
+    # CUDA stream
+    W0 = torch.linalg.solve_ex(A.transpose(-1, -2),
+                               torch.conj(G)).result.transpose(-1, -2)
     d = torch.einsum("...ij,...ji->...i", W0, G)
     W = W0 / d[..., :, None]
     gain = torch.ones(G.shape[:-2], dtype=torch.float32, device=G.device)

@@ -22,9 +22,7 @@ def postprocess_eq(eq: torch.Tensor, cfg: ModemConfig) -> torch.Tensor:
         eq = eq * float(np.float32(np.sqrt(m_occ / cfg.M)))
     if cfg.track_phase:
         d1 = constellation.demodulate(eq, cfg.modulation)
-        tab = torch.as_tensor(np.array(constellation.table(cfg.modulation)),
-                              device=eq.device)
-        ideal = tab[d1.long()]
+        ideal = constellation.table_on(cfg.modulation, eq.device)[d1.long()]
         rot = torch.sum(eq * torch.conj(ideal), dim=-1)
         eq = eq * torch.exp(-1j * torch.angle(rot))[..., None]
     return eq.to(torch.complex64)

@@ -30,15 +30,13 @@ def sic_equalize(Y: torch.Tensor, G_occ: torch.Tensor, cfg: ModemConfig,
     eq [n_sym, tx, n_sc] (unbiased per-stream soft estimates)."""
     n_sc, _, T = G_occ.shape
     dev = Y.device
-    table = torch.as_tensor(np.array(constellation.table(cfg.modulation)),
-                            device=dev)
+    table = constellation.table_on(cfg.modulation, dev)
     nv = float(np.float32(noise_var))
     y = Y.transpose(1, 2).to(torch.complex64)      # [n_sym, n_sc, rx]
     G = G_occ.to(torch.complex64)
     active = torch.ones((n_sc, T), dtype=torch.bool, device=dev)
     eq_out = torch.zeros((Y.shape[0], T, n_sc), dtype=torch.complex64,
                          device=dev)
-    big = torch.tensor(3e38, dtype=torch.float32, device=dev)
     eyeT = torch.eye(T, dtype=torch.complex64, device=dev)
 
     for _ in range(T):
@@ -47,7 +45,7 @@ def sic_equalize(Y: torch.Tensor, G_occ: torch.Tensor, cfg: ModemConfig,
         A = Gh @ Gm + nv * eyeT
         inv = torch.linalg.inv_ex(A).inverse        # [n_sc, T, T]
         err = torch.diagonal(inv, dim1=-2, dim2=-1).real
-        err = torch.where(active, err, big)
+        err = torch.where(active, err, 3e38)
         j = torch.argmin(err, dim=-1)               # [n_sc]
         onehot = torch.nn.functional.one_hot(j, T).to(torch.complex64)
 

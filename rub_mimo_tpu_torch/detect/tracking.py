@@ -46,8 +46,7 @@ def track_and_equalize(Y: torch.Tensor, G0: torch.Tensor, cfg: ModemConfig,
     if n_sym % block_frames:
         raise ValueError(f"track_and_equalize: {n_sym} symbols are not a "
                          f"multiple of block_frames={block_frames}")
-    table = torch.as_tensor(np.array(constellation.table(cfg.modulation)),
-                            device=Y.device)
+    table = constellation.table_on(cfg.modulation, Y.device)
     G = G0.to(torch.complex64)
     eqs = []
     for b in range(n_sym // block_frames):

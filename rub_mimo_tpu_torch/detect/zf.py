@@ -35,7 +35,9 @@ def invert(G: torch.Tensor,
         )
     else:
         det = torch.linalg.det(G)
-        adj = torch.linalg.inv(G) * det[..., None, None]
+        # inv_ex: inv's values without its error check, which reads the
+        # status back and drains a CUDA stream
+        adj = torch.linalg.inv_ex(G).inverse * det[..., None, None]
         det_inv = (1.0 / det if invert_to_unity else torch.conj(det))
         W = det_inv[..., None, None] * adj
     if invert_to_unity:

@@ -16,17 +16,16 @@ The reference never corrects CFO (the FIXME at framing.cc:486).
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from rub_mimo_tpu_torch.config import ModemConfig
 from rub_mimo_tpu_torch.ofdm import preamble
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 from rub_mimo_tpu_torch.utils.gather import gather_windows
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _code_templates(cfg: ModemConfig, device: torch.device):
     """(rx ids [S*codes*S], conj templates [S*codes*S, M]) for the flat
     (rx, code, tx) order of ac_index."""

@@ -15,13 +15,12 @@ from the same code FFTs.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from rub_mimo_tpu_torch.config import ModemConfig
 from rub_mimo_tpu_torch.ofdm import preamble, sctype
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 from rub_mimo_tpu_torch.utils.gather import gather_windows
 
 
@@ -43,7 +42,7 @@ def code_ffts(window: torch.Tensor, offsets: torch.Tensor,
     return torch.fft.fft(wins.reshape(n_codes, S, S, M), dim=-1)
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _s1_and_mask(cfg: ModemConfig, device: torch.device):
     """S1 as [code, 1(rx), tx, M] and the occupied mask, on the device."""
     S1 = preamble.tables(cfg).S1.transpose(1, 0, 2)[:, None, :, :]

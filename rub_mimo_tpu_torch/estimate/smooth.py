@@ -12,14 +12,13 @@ bands make the delay-domain support leak; config.validate gates it).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from rub_mimo_tpu_torch.config import ModemConfig
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _keep(M: int, cp_len: int, margin: int, device: torch.device):
     keep = torch.zeros(M, dtype=torch.float32)
     keep[: cp_len + 1] = 1.0

@@ -34,6 +34,7 @@ import torch
 
 from rub_mimo_tpu_torch.detect import zf
 from rub_mimo_tpu_torch.ofdm import constellation
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 MAX_EQ_POINTS = 64
 MAX_DEMAP_POINTS = 256
@@ -140,7 +141,7 @@ def cell_candidates(word: int) -> list:
     return [q for i, q in enumerate(slots) if i == 0 or q != slots[i - 1]]
 
 
-@functools.lru_cache(maxsize=16)
+@device_constant
 def _device_table(table_bytes: bytes, device: torch.device) -> torch.Tensor:
     table = np.frombuffer(table_bytes, dtype=np.complex64)
     pts = np.zeros((len(table), 4), np.float32)

@@ -30,6 +30,7 @@ import torch
 
 from rub_mimo_tpu_torch.detect import zf
 from rub_mimo_tpu_torch.ofdm import constellation
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 MAX_POINTS = 64
 
@@ -200,7 +201,7 @@ def launch_geometry(kernel: str, S: int, M: int, n_sym: int,
                      "smem_bytes", "two_stage"), list(geo)))
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _twiddles(M: int, device: torch.device) -> torch.Tensor:
     """``pass_twiddles(M)`` on ``device`` (at least one entry)."""
     tw = pass_twiddles(M)

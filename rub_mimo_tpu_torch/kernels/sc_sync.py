@@ -70,7 +70,10 @@ def plateau_scan(metric: torch.Tensor, cp_len: int, threshold: float,
     cond = above & ((idx - run_start) > cp_len)
     fire = cond.sum(dim=0) >= q
     t_star = torch.argmax(fire.to(torch.uint8))
-    return fire[t_star], t_star, run_start[:, t_star], cond[:, t_star]
+    # index_select at a device scalar: x[t_star] would read it back
+    at = t_star.reshape(1)
+    return (fire.index_select(0, at)[0], t_star,
+            run_start.index_select(1, at)[:, 0], cond.index_select(1, at)[:, 0])
 
 
 def sc_sync_reference(x: torch.Tensor, M: int, cp_len: int,
@@ -85,7 +88,7 @@ def sc_sync_reference(x: torch.Tensor, M: int, cp_len: int,
     corr, energy = k6.moving_corr_energy(x, M, block=block)
     synced, t_star, starts, _ = plateau_scan(
         k6.metric_from(corr, energy), cp_len, threshold)
-    return synced, t_star, starts, corr[:, t_star]
+    return synced, t_star, starts, corr.index_select(1, t_star.reshape(1))[:, 0]
 
 
 def chunk_scan_emulation(metric: torch.Tensor, cp_len: int,

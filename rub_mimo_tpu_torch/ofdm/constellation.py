@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from rub_mimo_tpu_torch.config import Modulation
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -139,16 +140,28 @@ def demap_planes(points: np.ndarray) -> np.ndarray:
     return np.stack([t.real, t.imag, np.abs(t) ** 2 / 2.0]).astype(np.float32)
 
 
+@device_constant
+def table_on(modulation: Modulation, device: torch.device) -> torch.Tensor:
+    """``table(modulation)`` as a complex64 tensor on ``device``, made once
+    per device: a decode uploads nothing from the host."""
+    return torch.as_tensor(np.array(table(modulation)), device=device)
+
+
 def modulate(symbols: torch.Tensor, modulation: Modulation) -> torch.Tensor:
     """Map integer symbols in [0, arity) to constellation points."""
-    t = torch.as_tensor(np.array(table(modulation)), device=symbols.device)
-    return t[symbols.long()]
+    return table_on(modulation, symbols.device)[symbols.long()]
+
+
+@functools.lru_cache(maxsize=32)
+def _planes_on(points: bytes, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(demap_planes(np.frombuffer(points, np.complex64)),
+                           device=device)
 
 
 def hard_demap(y: torch.Tensor, points: np.ndarray) -> torch.Tensor:
     """Nearest-neighbour decisions (int32, y's shape) over ``points``:
     argmax_k Re(y) Re(c_k) + Im(y) Im(c_k) - |c_k|^2 / 2, first max wins."""
-    c = torch.as_tensor(demap_planes(points), device=y.device)
+    c = _planes_on(np.asarray(points, np.complex64).tobytes(), y.device)
     yr = y.real.float().unsqueeze(-1)
     yi = y.imag.float().unsqueeze(-1)
     scores = yr * c[0] + yi * c[1] - c[2]

@@ -38,11 +38,14 @@ wrapper launches on CUDA tensors and runs its plain PyTorch version on
 CPU tensors.  Outputs are in natural subcarrier order with exactly
 pid_max frames.
 
-Host synchronizations on a GPU (each drains the stream): the coarse
-sync's two early-exit tests (none under sync_impl "xla" or "pallas"),
-reading sync_index for the region and payload slices, and reading
-decode_start for the payload slice.  The fallback and the CFO steps are
-computed on the device and selected with torch.where.
+Host synchronizations on a GPU (each drains the stream): only the coarse
+sync's two early-exit tests.  Under sync_impl "xla" or "pallas" the
+decode reads nothing back: the region and payload slices start at device
+scalars (``extract_payload``), and the fallback and the CFO steps are
+computed on the device and selected with torch.where.  So those decodes
+can be captured in a CUDA graph: ``make_serving_decoder`` serves a stack
+of captures by replaying one graph per capture shape.  ``decode_all``
+decodes the bursts of one long capture one after another.
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from rub_mimo_tpu_torch.kernels import eq_demap as eq_demap_mod
 from rub_mimo_tpu_torch.kernels import payload_fused
 from rub_mimo_tpu_torch.ofdm import constellation, sctype
 from rub_mimo_tpu_torch.sync import matched_filter, schmidl_cox, xcorr_sync
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 PAYLOAD_IMPLS = ("auto", "fused_strip", "fused", "eqdemap", "xla")
 
@@ -92,31 +96,59 @@ class DecodeResult(NamedTuple):
                                    # payload grid, kept for the ML detector
 
 
-def extract_payload(iq: torch.Tensor, cstart: int, plen: int,
+@device_constant
+def _arange_on(n: int, device: torch.device) -> torch.Tensor:
+    """[n] int32 0, 1, ..., n - 1 on ``device``, made once."""
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def _start_on(start, device: torch.device) -> torch.Tensor:
+    """A window start as a device int64 scalar; a Python int is filled in
+    on the device (no host-to-device copy)."""
+    if isinstance(start, torch.Tensor):
+        return start.to(device=device, dtype=torch.int64)
+    return torch.full((), int(start), dtype=torch.int64, device=device)
+
+
+def window_index(cstart, plen: int, T: int, device: torch.device):
+    """(src [plen] int32, outside [plen] bool) of the window
+    [cstart, cstart + plen) of a T-sample capture: each position's sample,
+    clamped into the capture, and whether it lies outside it.  cstart is
+    a device scalar or a Python int; nothing is read back."""
+    idx = _start_on(cstart, device) + _arange_on(plen, device)  # int32
+    src = torch.clamp(idx, 0, max(T - 1, 0))
+    return src, src != idx
+
+
+def gather_window(iq: torch.Tensor, src: torch.Tensor, outside: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """iq[:, src] [S, plen] with zeros where ``outside`` (window_index's
+    pair), into ``out`` when given.  One index serves every stream."""
+    out = torch.index_select(iq, 1, src, out=out)
+    return out.masked_fill_(outside, 0)
+
+
+def extract_payload(iq: torch.Tensor, cstart, plen: int,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``iq[:, cstart : cstart + plen]`` with the windowcf's read-zeros
     semantics outside the capture (framing.cc:284, 639-651): the in-range
-    part copied, the rest zeros.  Any dtype; cstart may be negative or
-    past the end.  Written into ``out`` ([S, plen], iq's dtype) when
-    given."""
-    S, T = iq.shape
-    if out is None:
-        out = torch.empty((S, plen), dtype=iq.dtype, device=iq.device)
-    lo = min(max(-cstart, 0), plen)
-    hi = max(min(T - cstart, plen), lo)
-    out[:, :lo] = 0
-    out[:, lo:hi] = iq[:, cstart + lo: cstart + hi]
-    out[:, hi:] = 0
-    return out
+    part copied, the rest zeros.  Any dtype; cstart is a device int64
+    scalar (a Python int becomes one) and may be negative or past the
+    end; it is never read on the host.  Written into ``out`` ([S, plen],
+    iq's dtype, contiguous) when given."""
+    return gather_window(iq, *window_index(cstart, plen, iq.shape[-1],
+                                           iq.device), out=out)
 
 
-def _extract_region(iq: torch.Tensor, sync_index: int,
+def _extract_region(iq: torch.Tensor, sync_index,
                     cfg: ModemConfig) -> torch.Tensor:
     """The estimation prefix of the replay window, starting one symbol
-    before sync_index: [streams, symbol_len*(1 + codes*streams) + M]."""
+    before sync_index (a device scalar or a Python int):
+    [streams, symbol_len*(1 + codes*streams) + M]."""
     region_len = cfg.symbol_len * (1 + cfg.num_access_codes
                                    * cfg.num_streams) + cfg.M
-    start = min(max(sync_index, 0), iq.shape[-1]) - cfg.symbol_len
+    start = (torch.clamp(_start_on(sync_index, iq.device), 0, iq.shape[-1])
+             - cfg.symbol_len)
     return extract_payload(iq, start, region_len)
 
 
@@ -140,7 +172,7 @@ def _occupied(cfg: ModemConfig):
     return bool(all_occ), occ
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant
 def _occupied_on(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_occupied(cfg)[1], device=device)
 
@@ -194,21 +226,23 @@ def derotate_symbols(x_t: torch.Tensor, residual_cfo: torch.Tensor,
     return x_t * rot
 
 
-def strip_payload(iq: torch.Tensor, planes, cstart: int,
+def strip_payload(iq: torch.Tensor, planes, cstart,
                   cfg: ModemConfig) -> torch.Tensor:
     """The CP-stripped payload symbols x_t [S, pid_max, M] complex64
-    through the K7 kernel (kernels.cp_strip) on CUDA.  From (re, im)
-    planes both are extracted into one [2S, plen] buffer and stripped in
-    one call; the complex capture is not formed."""
+    through the K7 kernel (kernels.cp_strip) on CUDA, from the window at
+    cstart (a device scalar or a Python int).  From (re, im) planes both
+    are extracted into one [2S, plen] buffer and stripped in one call;
+    the complex capture is not formed."""
     S, n_sym, sym = cfg.num_streams, cfg.pid_max, cfg.symbol_len
     plen = n_sym * sym
     if planes is None:
         return cp_strip_mod.cp_strip(extract_payload(iq, cstart, plen),
                                      n_sym, sym, cfg.cp_len)
-    flat = torch.empty((2 * S, plen), dtype=torch.float32,
-                       device=planes[0].device)
+    dev = planes[0].device
+    flat = torch.empty((2 * S, plen), dtype=torch.float32, device=dev)
+    win = window_index(cstart, plen, planes[0].shape[-1], dev)
     for i, p in enumerate(planes):
-        extract_payload(p, cstart, plen, out=flat[i * S:(i + 1) * S])
+        gather_window(p, *win, out=flat[i * S:(i + 1) * S])
     x = cp_strip_mod.cp_strip(flat, n_sym, sym, cfg.cp_len)
     return torch.complex(x[:S], x[S:])
 
@@ -282,8 +316,7 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
         coarse_cfo = torch.where(use_fb, zero, sync.cfo_hat)
         iq = schmidl_cox.correct_cfo(iq, coarse_cfo, M)
         planes = None
-    si = int(sync_index)
-    region = _extract_region(iq, si, cfg)
+    region = _extract_region(iq, sync_index, cfg)
 
     joint = (not cfg.bit_exact) and cfg.timing_mode == "joint"
     mf = matched_filter.search(region, cfg, joint=joint,
@@ -311,14 +344,17 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
     decode_start = mf.ac_index[S - 1, -1] + M
     n_sym = cfg.pid_max
     plen = n_sym * sym
-    cstart = min(max(si, 0), T) + int(decode_start) - sym
+    # the window's start in the capture, on the device (rx.py:440 of the
+    # JAX package)
+    cstart = torch.clamp(sync_index, 0, T) + decode_start - sym
     table = constellation.table(cfg.modulation)
     norm = np.float32(1.0 / np.sqrt(cfg.M_occupied))
     Y = None
     if (payload_impl in ("auto", "fused_strip")
             and kernel_applicable(cfg, payload_impl)):
         if planes is not None:
-            p_re, p_im = (extract_payload(p, cstart, plen) for p in planes)
+            win = window_index(cstart, plen, T, iq.device)
+            p_re, p_im = (gather_window(p, *win) for p in planes)
         else:
             payload = extract_payload(iq, cstart, plen)
             if cfg.correct_cfo:
@@ -371,6 +407,20 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
     )
 
 
+def _on_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA request without CUDA raises,
+    and on CUDA float32 matrix products are kept in full float32 (see
+    make_decoder)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is not "
+                               "available")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 def make_decoder(cfg: ModemConfig, *, device, input_format: str = "complex",
                  keep_rx_sig: bool = True, keep_debug: bool = False,
                  sync_impl: str = "coarse", payload_impl: str = "auto"):
@@ -385,13 +435,7 @@ def make_decoder(cfg: ModemConfig, *, device, input_format: str = "complex",
     (TF32 off for matmul and cuDNN): TF32 would round the weights and the
     channel-inversion products to ~3 digits."""
     check_supported(cfg, payload_impl)
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"make_decoder: device {device} requested "
-                               "but CUDA is not available")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = _on_device(device)
     if sync_impl not in schmidl_cox.IMPLS:
         raise ValueError(f"unknown sync_impl {sync_impl!r}")
     kw = dict(keep_rx_sig=keep_rx_sig, keep_debug=keep_debug,
@@ -411,3 +455,148 @@ def make_decoder(cfg: ModemConfig, *, device, input_format: str = "complex",
     else:
         raise ValueError(f"unknown input_format {input_format!r}")
     return _decode
+
+
+WARMUP_DECODES = 2  # eager decodes before a capture: plans, caches, pool
+
+
+class CapturedDecode:
+    """One CUDA graph of the single-capture decode ``fn`` for one input
+    shape: static input buffers, the graph, and its static outputs (a
+    DecodeResult), which each replay overwrites.
+
+    ``fn`` is first run WARMUP_DECODES times on a side stream on the
+    static buffers, which builds the cuFFT plans, the kernels' launch
+    attributes and the cached device tables (``device_constant``: never
+    freed, since the graph reads them by address) and fills the
+    allocator, then captured.  A decode that reads back to the host, or
+    uploads from pageable host memory, cannot be captured and raises
+    here."""
+
+    def __init__(self, fn, first, device: torch.device):
+        self.inputs = [x.clone() for x in first]
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_DECODES):
+                    fn(*self.inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.outputs = fn(*self.inputs)
+
+    def replay(self, *captures) -> DecodeResult:
+        """Copy ``captures`` into the static inputs and replay: the
+        result is the static outputs, valid until the next replay."""
+        for buf, x in zip(self.inputs, captures):
+            buf.copy_(x)
+        self.graph.replay()
+        return self.outputs
+
+
+def _stack_results(results) -> DecodeResult:
+    return DecodeResult(*(
+        None if f is None else torch.stack([r[i] for r in results])
+        for i, f in enumerate(results[0])))
+
+
+def make_serving_decoder(cfg: ModemConfig, *, device,
+                         payload_impl: str = "auto", keep_rx_sig: bool = True,
+                         input_format: str = "complex",
+                         sync_impl: str = "pallas"):
+    """Throughput serving: a decoder of [batch, S, T] stacks (port of the
+    JAX package's make_serving_decoder, its lax.scan over the batch).
+
+    input_format="complex": the closure takes a [B, S, T] complex64
+    stack; "planes": (re, im) [B, S, T] float32 stacks.  It returns a
+    DecodeResult with every field stacked on a leading batch dim, metric
+    and mf_traces None.  Inputs are moved to ``device``.
+
+    On CUDA each capture is served by one replay of a CUDA graph of the
+    single-capture decode (``CapturedDecode``), captured at the first
+    stack of each capture shape and kept: its input copied into the
+    graph's static buffers, the replay, and its outputs copied out.  The
+    graph needs a decode that reads nothing back, so sync_impl must be
+    "pallas" (K5; not with a sync_quorum, which K5 does not take) or
+    "xla" (the full-rate scan, K6); "coarse" reads its early exit back
+    and raises ValueError.  A capture that fails raises; nothing falls
+    back to eager code.  On the CPU the eager decode runs per capture."""
+    check_supported(cfg, payload_impl)
+    if sync_impl not in schmidl_cox.IMPLS:
+        raise ValueError(f"unknown sync_impl {sync_impl!r}")
+    if input_format not in ("complex", "planes"):
+        raise ValueError(f"unknown input_format {input_format!r}")
+    if torch.device(device).type == "cuda" and (
+            sync_impl == "coarse"
+            or (sync_impl == "pallas" and cfg.sync_quorum is not None)):
+        raise ValueError(
+            f"make_serving_decoder: sync_impl {sync_impl!r} reads back to "
+            "the host (the coarse scan's early exit; a sync_quorum turns "
+            "'pallas' into 'coarse'), so it cannot be served from a CUDA "
+            "graph: use sync_impl='pallas' or 'xla'")
+    device = _on_device(device)
+    planes = input_format == "planes"
+    dtype = torch.float32 if planes else torch.complex64
+
+    def one(*x) -> DecodeResult:
+        r = decode(tuple(x) if planes else x[0], cfg, sync_impl=sync_impl,
+                   payload_impl=payload_impl, keep_rx_sig=keep_rx_sig)
+        return r._replace(metric=None, mf_traces=None)
+
+    def serve(*stacks) -> DecodeResult:
+        if len(stacks) != (2 if planes else 1):
+            raise ValueError(f"input_format {input_format!r} takes "
+                             f"{2 if planes else 1} stacks, got {len(stacks)}")
+        stacks = [torch.as_tensor(s, dtype=dtype, device=device)
+                  for s in stacks]
+        shape = tuple(stacks[0].shape)
+        if len(shape) != 3 or any(tuple(s.shape) != shape for s in stacks):
+            raise ValueError("make_serving_decoder: expected [batch, S, T] "
+                             f"stacks, got {[tuple(s.shape) for s in stacks]}")
+        if device.type != "cuda":
+            return _stack_results([one(*(s[i] for s in stacks))
+                                   for i in range(shape[0])])
+        graph = serve.graphs.get(shape[1:])
+        if graph is None:
+            graph = serve.graphs[shape[1:]] = CapturedDecode(
+                one, [s[0] for s in stacks], device)
+        out = [None if o is None else torch.empty(
+            (shape[0], *o.shape), dtype=o.dtype, device=o.device)
+            for o in graph.outputs]
+        for i in range(shape[0]):
+            r = graph.replay(*(s[i] for s in stacks))
+            for o, v in zip(out, r):
+                if o is not None:
+                    o[i].copy_(v)
+        return DecodeResult(*out)
+
+    serve.graphs = {}  # capture shape (S, T) -> CapturedDecode
+    return serve
+
+
+def decode_all(iq, cfg: ModemConfig, *, device, max_bursts: int = 4,
+               sync_impl: str = "coarse", payload_impl: str = "auto"):
+    """Decode several frame bursts from one long capture [S, T] complex64
+    (port of the JAX package's decode_all): decode, stop at the first
+    decode that does not sync (one host read a burst), zero the consumed
+    window_len + symbol_len samples from clamp(sync_index - symbol_len,
+    0, T) and decode again, up to max_bursts.  Bursts must lie at least
+    one replay window apart.  The caller's tensor is never modified (the
+    erasures go to a copy).  Returns a list of DecodeResults."""
+    dec = make_decoder(cfg, device=device, sync_impl=sync_impl,
+                       payload_impl=payload_impl)
+    x = torch.as_tensor(iq, dtype=torch.complex64,
+                        device=torch.device(device)).clone()
+    T = x.shape[-1]
+    erase_len = cfg.window_len + cfg.symbol_len
+    pos = torch.arange(T, device=x.device)
+    results = []
+    for _ in range(max_bursts):
+        r = dec(x)
+        if not bool(r.synced):
+            break
+        results.append(r)
+        start = torch.clamp(r.sync_index - cfg.symbol_len, 0, T)
+        x.masked_fill_((pos >= start) & (pos < start + erase_len), 0)
+    return results

@@ -23,6 +23,7 @@ import torch
 
 from rub_mimo_tpu_torch.config import ModemConfig
 from rub_mimo_tpu_torch.ofdm import preamble
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 
 class MatchedFilterResult(NamedTuple):
@@ -50,7 +51,7 @@ def _fft_len(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant
 def _template_fft_conj(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
     L = _fft_len(cfg.symbol_len + cfg.M)
     tf = np.conj(np.fft.fft(templates(cfg), n=L, axis=-1))

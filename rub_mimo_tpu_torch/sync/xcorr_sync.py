@@ -18,6 +18,7 @@ import torch
 
 from rub_mimo_tpu_torch.config import ModemConfig
 from rub_mimo_tpu_torch.ofdm import preamble
+from rub_mimo_tpu_torch.utils.device_cache import device_constant
 from rub_mimo_tpu_torch.utils.movsum import moving_sum
 
 
@@ -29,6 +30,13 @@ class XcorrSyncResult(NamedTuple):
 
 def _fft_len(n: int) -> int:
     return 1 << (n - 1).bit_length()
+
+
+@device_constant
+def _s0_template(cfg: ModemConfig, device: torch.device) -> torch.Tensor:
+    """The unnormalized S0 time template on ``device``, made once."""
+    return torch.as_tensor(preamble.tables(cfg).s0_unnormalized,
+                           device=device)
 
 
 def normalized_s0_score(ext: torch.Tensor, cfg: ModemConfig,
@@ -45,8 +53,7 @@ def normalized_s0_score(ext: torch.Tensor, cfg: ModemConfig,
     weak burst beside a strong interferer.  An all-zero input has zero
     |corr|^2, and the 1e-20 keeps it 0/eps = 0."""
     M = cfg.M
-    tmpl = torch.as_tensor(preamble.tables(cfg).s0_unnormalized,
-                           device=ext.device)
+    tmpl = _s0_template(cfg, ext.device)
     e_tmpl = (tmpl.abs() ** 2).sum()
     L = _fft_len(ext.shape[-1] + M)
     Xf = torch.fft.fft(ext, n=L, dim=-1)

@@ -1125,3 +1125,146 @@ def test_sharded_serving_across_cards_matches_single_decodes():
         assert_decisions_match(got.rx_data[i], ref.rx_data, ref.rx_sig,
                                constellation.table(MID.modulation))
         assert _ser_zero(got.rx_data[i], txs[i], MID)
+
+
+# the paths make_serving_decoder serves from CUDA graphs, at MID's
+# widths: (config, channel, decoder options, launches per decode of K5
+# K6 K1 K7 K4)
+_SERVE_SPEC = dict(snr_db=30.0, delay=3000, seed=3)
+SERVED_PATHS = {
+    "operating_point": (MID, _SERVE_SPEC, dict(sync_impl="pallas"),
+                        (1, 0, 1, 0, 0)),
+    "cfo_config": (MID.replace(correct_cfo=True, sync_fallback=True,
+                               smooth_channel=True),
+                   dict(_SERVE_SPEC, cfo_subcarriers=0.05),
+                   dict(sync_impl="pallas"), (1, 0, 1, 0, 0)),
+    "mimo_2x2_zf_xla": (MID.replace(modulation=Modulation.QAM16),
+                        _SERVE_SPEC,
+                        dict(sync_impl="pallas", payload_impl="xla"),
+                        (1, 0, 0, 1, 1)),
+    "track_channel": (MID.replace(track_channel=True, track_block_frames=4),
+                      _SERVE_SPEC, dict(sync_impl="pallas"),
+                      (1, 0, 0, 1, 4)),
+    "mimo_4x4_wideband": (MID.replace(num_streams=4,
+                                      modulation=Modulation.QAM16,
+                                      detector=Detector.MMSE,
+                                      mmse_noise_var=1e-3, sync_quorum=3),
+                          dict(snr_db=35.0, delay=3000, seed=6),
+                          dict(sync_impl="xla"), (0, 1, 1, 0, 0)),
+}
+
+
+def _served_captures(path: str, seeds=(0, 1)):
+    """The path's captures with the channel seed moved by each of
+    ``seeds``: (planes stacks [B, S, T] on the card, tx data)."""
+    cfg, spec, _, _ = SERVED_PATHS[path]
+    caps, txs = [], []
+    for k in seeds:
+        s = simulator.ChannelSpec(**dict(spec, seed=spec["seed"] + k))
+        cap, tx, _ = simulator.simulate_capture(cfg, s, device="cpu")
+        caps.append(cap)
+        txs.append(tx)
+    T = min(c.shape[-1] for c in caps)
+    stack = torch.stack([c[:, :T] for c in caps]).to("cuda")
+    return (stack.real.contiguous(), stack.imag.contiguous()), txs
+
+
+def _serve_counts():
+    return (k5.sc_sync_fused, k6.sc_metric_fused, pf.payload_fused_strip,
+            k7.cp_strip, k34.demap)
+
+
+@pytest.mark.parametrize("path", list(SERVED_PATHS))
+def test_graph_served_decodes_match_eager(path):
+    """Each capture served from the path's CUDA graph equals the eager
+    decode of it with the same options (integers equal, G and rx_sig
+    within 1e-4), with SER 0; the first call warms up twice and captures
+    once, and a replay launches through no wrapper."""
+    require_cuda()
+    cfg, _, kw, per_decode = SERVED_PATHS[path]
+    planes, txs = _served_captures(path)
+    serve = rx.make_serving_decoder(cfg, device="cuda",
+                                    input_format="planes", **kw)
+    before = [c.launches for c in _serve_counts()]
+    got = serve(*planes)
+    mid = [c.launches for c in _serve_counts()]
+    again = serve(*planes)
+    torch.cuda.synchronize()
+    assert [m - b for m, b in zip(mid, before)] == [
+        (rx.WARMUP_DECODES + 1) * k for k in per_decode]
+    assert [c.launches for c in _serve_counts()] == mid
+    assert len(serve.graphs) == 1
+    eager = rx.make_decoder(cfg, device="cuda", input_format="planes", **kw)
+    for i, tx in enumerate(txs):
+        ref = eager(planes[0][i], planes[1][i])
+        for f in ("synced", "sync_index", "sync_sample", "plateau_start",
+                  "plateau_end", "s0_index", "ac_index", "decode_start",
+                  "rx_data", "symbol_valid"):
+            assert torch.equal(getattr(got, f)[i], getattr(ref, f)), (i, f)
+            assert torch.equal(getattr(again, f)[i], getattr(ref, f)), (i, f)
+        np.testing.assert_allclose(n(got.G[i]), n(ref.G), rtol=1e-4,
+                                   atol=1e-6)
+        scale = float(ref.rx_sig.abs().max())
+        np.testing.assert_allclose(n(got.rx_sig[i]), n(ref.rx_sig), rtol=0,
+                                   atol=1e-4 * scale)
+        assert got.metric is None and got.mf_traces is None
+        ser = report.score(_one(got, i), tx, cfg).symbol_error_rate
+        assert ser == [0.0] * len(ser), (i, ser)
+
+
+def _one(stacked, i: int):
+    return stacked._replace(**{f: v[i] for f, v in stacked._asdict().items()
+                               if v is not None})
+
+
+@pytest.mark.parametrize("path", list(SERVED_PATHS))
+def test_served_paths_do_not_synchronize(path):
+    """An eager decode of each served path raises nothing under
+    torch.cuda.set_sync_debug_mode("error"), which does raise on a
+    host read."""
+    require_cuda()
+    cfg, _, kw, _ = SERVED_PATHS[path]
+    planes, _ = _served_captures(path, seeds=(0,))
+    dec = rx.make_decoder(cfg, device="cuda", input_format="planes", **kw)
+    dec(planes[0][0], planes[1][0])  # warm: plans, caches, attributes
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            int(planes[0].sum())
+        r = dec(planes[0][0], planes[1][0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(r.synced)
+
+
+def test_second_replay_serves_its_own_capture():
+    """Two captures served one at a time through the same graph: each
+    result is that capture's decode, and the first result is not
+    overwritten by the second replay; a noise-only capture is served
+    too (no sync, its garbage decode equal to the eager one)."""
+    require_cuda()
+    cfg, _, kw, _ = SERVED_PATHS["operating_point"]
+    planes, _ = _served_captures("operating_point")
+    rng = np.random.default_rng(5)
+    noise = torch.as_tensor(rng.standard_normal(
+        (2,) + tuple(planes[0].shape[1:])).astype(np.float32) * 0.05,
+        device="cuda")
+    serve = rx.make_serving_decoder(cfg, device="cuda",
+                                    input_format="planes", **kw)
+    eager = rx.make_decoder(cfg, device="cuda", input_format="planes", **kw)
+    first = serve(planes[0][:1], planes[1][:1])
+    first_data = first.rx_data.clone()
+    second = serve(planes[0][1:], planes[1][1:])
+    quiet = serve(noise[0][None], noise[1][None])
+    assert len(serve.graphs) == 1
+    assert torch.equal(first.rx_data, first_data)
+    for got, (re, im) in ((first, (planes[0][0], planes[1][0])),
+                          (second, (planes[0][1], planes[1][1])),
+                          (quiet, (noise[0], noise[1]))):
+        ref = eager(re, im)
+        for f in ("synced", "sync_index", "decode_start", "ac_index",
+                  "rx_data", "symbol_valid"):
+            assert torch.equal(getattr(got, f)[0], getattr(ref, f)), f
+    assert not bool(quiet.synced[0])
+    assert not torch.equal(first.G, second.G)  # two channels
