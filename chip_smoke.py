@@ -60,6 +60,19 @@ device's busy time and idle share of a replay; it runs an eager decode
 of each of those paths under torch.cuda.set_sync_debug_mode("error")
 (no_host_sync), and decode_all on a full-width capture of two bursts
 (both found, SER 0, the input unchanged) and on a one-burst capture.
+It streams (pipeline.streaming) the operating point through
+decode_stream in chunks of 65,536 and 4,096 and through push_block (8
+chunks a call), each equal to the eager decode (sync_index, the global
+decode_start, decisions but at near-ties, SER 0); the CFO config (SER
+0, cfo_hat within 1e-3 of the eager decode's); track_channel in 8-frame
+groups, held against the port's streamed decode on the CPU; the
+two-burst capture, each burst equal to decode_all's; 64 chunks of
+seeded noise through push_block (no fire, one read a block); and a
+stretch of payload pushes under set_sync_debug_mode("error"), with K6
+and K1 at the stream's shapes against their plain versions; its
+streaming lines print IQ samples/s for the stream and its payload
+phase, ms a payload push, host reads and kernels a call, and the
+device's busy time and idle share over the stream.
 Every launch count is set to 0 just before a path runs and read just
 after.  It decodes the
 checked-in golden capture, times the decodes and the kernels with CUDA
@@ -101,6 +114,10 @@ REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "tests" / "golden"
 TIE_MARGIN = 1e-4    # decisions may differ only where the plain scores tie
 SIG_REL_TOL = 1e-4   # max |kernel - plain| / RMS(plain) of rx_sig
+# the same for a channel-tracked rx_sig: each refit goes through a matrix
+# inverse, so rounding grows from group to group (tests/test_torch_
+# streaming.py and test_torch_detectors.py hold tracked outputs to 1e-3)
+TRACKED_SIG_REL_TOL = 1e-3
 TIMING_ITERS = 20
 # K6 against its plain version: the tolerance of the JAX package's metric
 # kernel test (chunked cumsum rounding), on finite samples whose plain
@@ -198,9 +215,11 @@ def top2_margin(y: torch.Tensor, table: np.ndarray) -> torch.Tensor:
     return top[..., 0] - top[..., 1]
 
 
-def compare(sig, data, ref_sig, ref_data, table) -> dict:
+def compare(sig, data, ref_sig, ref_data, table,
+            sig_tol: float = SIG_REL_TOL) -> dict:
     """Kernel vs plain: decision mismatches (each must be a near-tie of
-    the plain scores) and the rx_sig error relative to the plain RMS."""
+    the plain scores) and the rx_sig error relative to the plain RMS
+    (at most sig_tol)."""
     torch.cuda.synchronize()
     bad = data != ref_data
     n_bad = int(bad.sum())
@@ -212,8 +231,8 @@ def compare(sig, data, ref_sig, ref_data, table) -> dict:
         rms = float(torch.sqrt(torch.mean(ref_sig.abs() ** 2)))
         out.update(max_abs_err=float(err.max()),
                    rel_err=float(err.max()) / rms)
-        require(out["rel_err"] <= SIG_REL_TOL,
-                f"rx_sig error {out['rel_err']:.3e} > {SIG_REL_TOL} of RMS")
+        require(out["rel_err"] <= sig_tol,
+                f"rx_sig error {out['rel_err']:.3e} > {sig_tol} of RMS")
     require(all(m < TIE_MARGIN for m in margins),
             f"decision mismatches outside near-ties: margins {margins}")
     return out
@@ -1043,6 +1062,319 @@ def two_bursts(cfg, dev, spec):
     cap = simulator.apply_channel(torch.cat([z[0], tx[0], z[1], tx[1], z[2]],
                                             dim=-1), h, spec, cfg)
     return cap, data
+
+
+STREAM_CHUNKS = (65536, 4096)  # the module's default chunk, cli listen's
+STREAM_BLOCK = 8               # chunks a push_block call
+NOISE_CHUNKS = 64              # chunks of seeded noise the seek check takes
+SPAN_RUNS = 5                  # timed payload phases a streamed path
+
+
+def feed(dec, x: torch.Tensor, block: int = 1, sync_each: bool = False):
+    """Push x [S, T] through a StreamingDecoder, zero-padded to whole
+    calls of ``block`` chunks (push for 1, else push_block), then
+    finalize.  Returns one record a call: (phase before, phase after,
+    bursts completed in it, its host reads, its wall ms; with sync_each
+    the device's work for the call is inside the ms)."""
+    n = block * dec.C
+    calls = -(-x.shape[-1] // n)
+    x = torch.nn.functional.pad(x, (0, calls * n - x.shape[-1]))
+    recs = []
+    for i in range(calls):
+        piece = x[:, i * n:(i + 1) * n]
+        before, reads, done = dec.phase, dec.host_reads, len(dec.bursts)
+        t0 = time.perf_counter()
+        if block == 1:
+            dec.push(piece)
+        else:
+            dec.push_block(piece)
+        if sync_each:
+            torch.cuda.synchronize()
+        recs.append((before, dec.phase, len(dec.bursts) - done,
+                     dec.host_reads - reads,
+                     (time.perf_counter() - t0) * 1e3))
+    dec.finalize()
+    return recs
+
+
+def payload_span(dec, x: torch.Tensor, strict: bool = False):
+    """Push x [S, T] chunk by chunk into the fresh StreamingDecoder dec
+    until it reaches the payload phase, then time, on the wall clock
+    synchronized at both ends, the pushes that stay in the payload phase
+    and complete no burst.  With strict they run under
+    torch.cuda.set_sync_debug_mode("error"), shown to raise on a host
+    read first.  Returns (pushes, seconds)."""
+    C = dec.C
+    n = -(-x.shape[-1] // C)
+    x = torch.nn.functional.pad(x, (0, n * C - x.shape[-1]))
+    i = 0
+    while dec.phase != "payload":
+        dec.push(x[:, i * C:(i + 1) * C])
+        i += 1
+    torch.cuda.synchronize()
+    pushes = 0
+    if strict:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        if strict:
+            try:
+                int(x[0, 0].real)
+                raised = False
+            except RuntimeError:
+                raised = True
+            require(raised, "set_sync_debug_mode('error') let a read pass")
+        t0 = time.perf_counter()
+        while i < n and dec.gpos + 2 * C < dec._burst_end:
+            dec.push(x[:, i * C:(i + 1) * C])
+            i += 1
+            pushes += 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return pushes, time.perf_counter() - t0
+
+
+def stream_stats(make, T: int, span=None) -> dict:
+    """Throughput and per-call costs of one streamed path: ``make()``
+    builds a StreamingDecoder and streams a T-sample capture through it
+    (``feed``), returning (decoder, records); ``span()`` times its
+    payload phase (``payload_span``).  The whole stream's wall time (a
+    second, warm run, synchronized at its end), the payload phase's (ms
+    a push, median and least of SPAN_RUNS runs), the per-call records
+    of a run synchronized after every call (host reads by phase; latency
+    medians, the sync included), and the device's busy time and kernels
+    over one stream (torch.profiler)."""
+    make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec, _ = make()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    out = {"chunk": dec.C, "samples": T, "wall_ms": wall_s * 1e3,
+           "samples_per_s": T / wall_s}
+    if span is not None:
+        span()
+        runs = [span() for _ in range(SPAN_RUNS)]
+        pushes = runs[0][0]
+        ms = sorted(secs / n * 1e3 for n, secs in runs)
+        out.update(payload_pushes_timed=pushes,
+                   payload_push_ms=statistics.median(ms),
+                   payload_push_ms_min=ms[0],
+                   payload_samples_per_s=dec.C / statistics.median(ms) * 1e3)
+    _, recs = make(sync_each=True)
+    calls = len(recs)
+    latency: dict = {}
+    reads: dict = {}
+    for before, after, done, n_reads, ms in recs:
+        key = before if before == after and not done else "transition"
+        reads.setdefault(key, []).append(n_reads)
+        latency.setdefault(key, []).append(ms)
+    busy = device_busy(make, n=1)
+    busy_ms = busy["busy_ms"]
+    out.update(
+        calls=calls,
+        call_latency_ms_median={k: statistics.median(v)
+                                for k, v in sorted(latency.items())},
+        host_reads_per_call={k: {"calls": len(v), "max": max(v),
+                                 "mean": sum(v) / len(v)}
+                             for k, v in sorted(reads.items())},
+        host_reads_total=dec.host_reads,
+        device_busy_ms=busy_ms,
+        idle_share=(None if busy_ms is None
+                    else 1.0 - busy_ms / (wall_s * 1e3)),
+        kernels_per_call={k: v / calls for k, v in
+                          busy["launches_by_name"].items()},
+        kernels_us=busy["kernels_us"])
+    return out
+
+
+def streaming_phase(dev, card, cfg, cap, tx_data, r, cfg_cfo, cap_c, tx_c,
+                    rc, p_re, p_im) -> dict:
+    """The streaming decoder (pipeline.streaming) at full width: the
+    operating point streamed through decode_stream at each of
+    STREAM_CHUNKS and through push_block, each equal to the eager decode
+    r; the CFO config and track_channel (8-frame groups) streamed; the
+    two-burst capture against decode_all; a seek over seeded noise;
+    the payload phase under set_sync_debug_mode("error"); and K6 and K1
+    at the shapes the stream gives them against their plain versions.
+    Returns each kernel's launches per streamed capture, by path."""
+    from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.kernels import payload_fused as pf
+    from rub_mimo_tpu_torch.ofdm import constellation
+    from rub_mimo_tpu_torch.pipeline import rx
+    from rub_mimo_tpu_torch.pipeline import streaming
+
+    tab = constellation.table(cfg.modulation)
+    T, M, sym = cap.shape[-1], cfg.M, cfg.symbol_len
+    launches: dict = {}
+
+    def count(path: str, counts: dict) -> None:
+        for k in ("payload_fused_strip", "demap", "sc_metric", "cp_strip"):
+            if counts[k]:
+                launches.setdefault(k, {})[path] = counts[k]
+
+    def streamer(c, x, C, block=1):
+        def make(sync_each=False):
+            dec = streaming.StreamingDecoder(c, device=dev, chunk_size=C)
+            return dec, feed(dec, x, block, sync_each)
+        return make
+
+    # K6 and K1 at the streamed shapes against their plain versions: a
+    # seek chunk's [tail, chunk] over the frame's plateau, and K1 on
+    # runs of 30, 2 and 1 frames at the symbol pitch
+    t0 = int(r.sync_index) - 3000
+    shapes = {"k6": {}, "k1": {}}
+    for C in STREAM_CHUNKS:
+        shapes["k6"][str(C)] = check_metric(
+            cap[:, t0:t0 + C + M - 1].contiguous(), M, cfg.plateau_threshold)
+    norm = np.float32(1.0 / np.sqrt(cfg.M_occupied))
+    for n in (30, 2, 1):
+        kw = dict(n_sym=n, symbol_len=sym, cp_len=cfg.cp_len)
+        args = (p_re[:, :n * sym].contiguous(), p_im[:, :n * sym].contiguous(),
+                r.W, r.normalize_gain, tab, norm)
+        shapes["k1"][str(n)] = compare(
+            *pf.payload_fused_strip(*args, **kw),
+            *pf.payload_tail_reference(*args, **kw), tab)
+    emit({"phase": "streaming_kernel_shapes", **shapes})
+
+    # the operating point: decode_stream at each chunk, push_block at
+    # the default chunk; each equal to the eager decode
+    paths = {f"decode_stream_{C}": (
+        lambda C=C: streaming.decode_stream(cap, cfg, C, device=dev), C, 1)
+        for C in STREAM_CHUNKS}
+    C0 = STREAM_CHUNKS[0]
+    paths[f"push_block_{STREAM_BLOCK}x{C0}"] = (
+        lambda: streamer(cfg, cap, C0, STREAM_BLOCK)()[0], C0, STREAM_BLOCK)
+    results = {}
+    for name, (run, C, block) in paths.items():
+        def whole(run=run):
+            dec = run()
+            dec.finalize()
+            return dec, dec.result()
+        (dec, (rx_sig, rx_data)), counts = drive(whole)
+        count(name, counts)
+        require(dec.synced and dec.sync_index == int(r.sync_index),
+                f"{name}: sync_index {dec.sync_index} vs {int(r.sync_index)}")
+        want_start = int(r.sync_index) - sym + int(r.decode_start)
+        require(dec.decode_start == want_start,
+                f"{name}: decode_start {dec.decode_start} vs {want_start}")
+        cmp = compare(rx_sig, rx_data, r.rx_sig, r.rx_data, tab)
+        ser = stream_ser(rx_data, tx_data, cfg)
+        require(all(x == 0.0 for x in ser), f"{name}: SER {ser}")
+        require(counts["sc_metric"] >= 1 and counts["payload_fused_strip"]
+                >= 1 and counts["demap"] >= 1, f"{name}: launches {counts}")
+        stats = stream_stats(streamer(cfg, cap, C, block), T, span=lambda C=C:
+                             payload_span(streaming.StreamingDecoder(
+                                 cfg, device=dev, chunk_size=C), cap))
+        results[name] = {"launches": counts, "sync_index": dec.sync_index,
+                         "decode_start": dec.decode_start,
+                         "bursts": len(dec.bursts), "ser_percent": ser,
+                         **cmp, **stats}
+        emit({"phase": "streaming", "path": name, "card": card,
+              **results[name]})
+
+    # the CFO config (coarse CFO at the fire, S0 fallback armed, the
+    # residual at estimation) and track_channel in 8-frame groups.  The
+    # streamed tracker (the JAX package's streaming semantics, which
+    # tests/test_torch_streaming.py holds the port to) refits within each
+    # payload block, so a block's last group can hold one or two frames,
+    # whose refit is rank deficient and errs where the offline tracker
+    # does not.  So the streamed track_channel is held against the port's
+    # streamed decode on the CPU (the plain versions), and its SER and
+    # first erring frame are printed.
+    tcfg = cfg.replace(track_channel=True, track_block_frames=8)
+    for name, c, x, txd, ref in (("cfo_config", cfg_cfo, cap_c, tx_c, rc),
+                                 ("track_channel", tcfg, cap, tx_data, None)):
+        def whole(c=c, x=x):
+            dec = streaming.decode_stream(x, c, C0, device=dev)
+            dec.finalize()
+            return dec, dec.result()
+        (dec, (sig, rx_data)), counts = drive(whole)
+        count(name, counts)
+        ser = stream_ser(rx_data, txd, c)
+        require(dec.synced, f"streamed {name} did not sync")
+        out = {"launches": counts, "sync_index": dec.sync_index,
+               "cfo_hat": dec.cfo_hat, "ser_percent": ser}
+        if ref is not None:
+            require(all(v == 0.0 for v in ser), f"streamed {name}: SER {ser}")
+            out["eager_cfo_hat"] = float(ref.cfo_hat)
+            require(abs(dec.cfo_hat - float(ref.cfo_hat)) < 1e-3,
+                    f"streamed cfo_hat {dec.cfo_hat} vs {float(ref.cfo_hat)}")
+        else:
+            require(counts["cp_strip"] >= 1 and counts["demap"] >= 1,
+                    f"streamed track_channel launches {counts}")
+            cpu = streaming.decode_stream(x.cpu(), c, C0, device="cpu")
+            cpu.finalize()
+            c_sig, c_data = (t.to(dev) for t in cpu.result())
+            require((cpu.sync_index, cpu.decode_start)
+                    == (dec.sync_index, dec.decode_start),
+                    "streamed track_channel: card and CPU sync differ")
+            wrong = (rx_data.cpu().numpy().reshape(c.num_streams, c.pid_max, -1)
+                     != np.asarray(txd).reshape(c.num_streams, c.pid_max,
+                                                -1)).any(axis=(0, 2))
+            out.update(ser_percent_cpu=stream_ser(c_data, txd, c),
+                       first_error_frame=(int(np.argmax(wrong)) if wrong.any()
+                                          else None),
+                       frames_with_errors=int(wrong.sum()),
+                       **compare(sig, rx_data, c_sig, c_data, tab,
+                                 TRACKED_SIG_REL_TOL))
+        out.update(stream_stats(
+            streamer(c, x, C0), x.shape[-1], span=lambda c=c, x=x:
+            payload_span(streaming.StreamingDecoder(c, device=dev,
+                                                    chunk_size=C0), x)))
+        emit({"phase": "streaming", "path": name, "card": card, **out})
+        results[name] = out
+
+    # two bursts against decode_all
+    cap2, data2 = two_bursts(cfg, dev, simulator.ChannelSpec(
+        snr_db=35.0, delay=0, trailing=0, seed=5))
+    ref2 = rx.decode_all(cap2, cfg, device=dev, max_bursts=4)
+
+    def whole2():
+        dec = streaming.decode_stream(cap2, cfg, C0, device=dev)
+        dec.finalize()
+        return dec.burst_results()
+    got, counts = drive(whole2)
+    count("two_bursts", counts)
+    require(len(got) == len(ref2) == 2,
+            f"streamed bursts {len(got)}, decode_all {len(ref2)}")
+    burst_out = []
+    for (si, sig, data), b, d in zip(got, ref2, data2):
+        require(si == int(b.sync_index),
+                f"burst sync_index {si} vs decode_all {int(b.sync_index)}")
+        ser = stream_ser(data, d, cfg)
+        require(all(x == 0.0 for x in ser), f"streamed burst SER {ser}")
+        burst_out.append({"sync_index": si, "ser_percent": ser,
+                          **compare(sig, data, b.rx_sig, b.rx_data, tab)})
+    emit({"phase": "streaming", "path": "two_bursts", "card": card,
+          "capture": list(cap2.shape), "launches": counts,
+          "bursts": burst_out})
+    del cap2, ref2
+
+    # a seek over seeded noise: push_block, one read a block, no fire
+    gen = torch.Generator(device=dev).manual_seed(9)
+    noise = torch.randn((cfg.num_streams, NOISE_CHUNKS * C0),
+                        dtype=torch.complex64, device=dev, generator=gen)
+    dec = streaming.StreamingDecoder(cfg, device=dev, chunk_size=C0)
+    recs = feed(dec, noise, STREAM_BLOCK)
+    t_noise = stream_stats(streamer(cfg, noise, C0, STREAM_BLOCK),
+                           noise.shape[-1])
+    require(dec.phase == "seek" and not dec.synced,
+            "the seek over noise fired")
+    require(all(rec[3] == 1 for rec in recs),
+            f"push_block over noise read {[rec[3] for rec in recs]}")
+    emit({"phase": "streaming", "path": "seek_noise", "card": card,
+          "blocks": len(recs), "reads_per_block": 1, **t_noise})
+    del noise
+
+    # the payload phase reads nothing back: pushes that stay in it run
+    # under set_sync_debug_mode("error")
+    checked, _ = payload_span(streaming.StreamingDecoder(
+        cfg, device=dev, chunk_size=C0), cap, strict=True)
+    require(checked >= 3, f"only {checked} payload pushes checked")
+    emit({"phase": "streaming_no_host_sync", "mode": "error",
+          "payload_pushes": checked, "chunk": C0})
+    return {"launches": launches, "paths": results}
 
 
 def main() -> None:
@@ -1981,6 +2313,11 @@ def main() -> None:
     emit({"phase": "k1_k2_times", "card": card, "iters": TIMING_ITERS,
           "l2_flush_bytes": L2_FLUSH_BYTES, "geometry": geometry, **k12})
 
+    # ---- phase 12: the streaming decoder at full width ----
+    streamed = streaming_phase(dev, card, cfg, cap, tx_data, r, cfg_cfo,
+                               torch.complex(re_c, im_c), tx_c, rc, p_re,
+                               p_im)
+
     # ---- the kernels line: bounds from this run's inputs ----
     K_op = len(tab)
     x2, W2, g2, _, _ = cases["payload_fused"]["args"]
@@ -2092,6 +2429,13 @@ def main() -> None:
                if v["launches_per_replay"][name]}
         if per:
             extra.setdefault(name, {})["launches_per_served_capture"] = per
+    # launches of each kernel in one streamed capture, by streamed path
+    for name, per in streamed["launches"].items():
+        extra.setdefault(name, {})["launches_per_streamed_capture"] = per
+    for name in ("payload_fused_strip", "demap", "sc_metric", "cp_strip"):
+        require(any(v >= 1 for v in streamed["launches"].get(name,
+                                                             {}).values()),
+                f"{name} was not launched on a streamed path")
     rows = {name: (launched[name], errors[name], *dev_ms[name])
             for name in KERNELS}
     for name, row in rows.items():

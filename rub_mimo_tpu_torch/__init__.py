@@ -13,7 +13,9 @@ outputs) and its payload tails (guard bands, the SISO, RX_DIVERSITY,
 ALAMOUTI and beamforming modes, the ZF, MMSE, SIC and ML detectors,
 channel and phase tracking), the TX side and channel simulator that
 build its captures, the presets (models.presets), the sharded decode and
-batched serving over a device mesh (parallel), and eight hand-written
+batched serving over a device mesh (parallel), the serving decoder and
+decode_all (pipeline.rx), the streaming decoder (pipeline.streaming,
+without its front-end and SFO options), and eight hand-written
 CUDA kernels (kernels/csrc/): the strip-fused payload tail, the fused
 payload tail, the CP strip, equalize + demap, the hard demap, the
 one-pass sync, the S&C metric and the halo exchange.

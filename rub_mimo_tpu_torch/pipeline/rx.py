@@ -247,6 +247,22 @@ def strip_payload(iq: torch.Tensor, planes, cstart,
     return torch.complex(x[:S], x[S:])
 
 
+def symbol_grid(x_t: torch.Tensor, cfg: ModemConfig) -> torch.Tensor:
+    """The frequency grid of the CP-stripped symbols x_t [S, n_sym, M]:
+    the FFT scaled by 1/sqrt(M_occ) on the occupied carriers, as
+    Y [n_sym, S(rx), M_occ]."""
+    X = torch.fft.fft(x_t, dim=-1) * float(
+        np.float32(1.0 / np.sqrt(cfg.M_occupied)))
+    if not _occupied(cfg)[0]:
+        X = X[:, :, _occupied_on(cfg, X.device)]
+    return X.transpose(0, 1)
+
+
+def occupied_channel(G: torch.Tensor, cfg: ModemConfig) -> torch.Tensor:
+    """G [M, rx, tx] on the occupied carriers (G itself when all are)."""
+    return G if _occupied(cfg)[0] else G[_occupied_on(cfg, G.device)]
+
+
 def payload_tail(x_t: torch.Tensor, G_occ: torch.Tensor, W: torch.Tensor,
                  gain: torch.Tensor, cfg: ModemConfig):
     """The generic payload tail (rx.py:577-635 of the JAX package) on the
@@ -256,10 +272,7 @@ def payload_tail(x_t: torch.Tensor, G_occ: torch.Tensor, W: torch.Tensor,
     Returns (rx_sig, rx_data [S, n_sym*M_occ], Y [n_sym, S, M_occ])."""
     S, n_sym = x_t.shape[0], x_t.shape[1]
     m_occ = cfg.M_occupied
-    X = torch.fft.fft(x_t, dim=-1) * float(np.float32(1.0 / np.sqrt(m_occ)))
-    if not _occupied(cfg)[0]:
-        X = X[:, :, _occupied_on(cfg, X.device)]
-    Y = X.transpose(0, 1)  # [n_sym, S(rx), m_occ]
+    Y = symbol_grid(x_t, cfg)  # [n_sym, S(rx), m_occ]
     if cfg.mode == CommMode.ALAMOUTI:
         eq = torch.zeros_like(Y)
         eq[:, 0, :] = alamouti.combine_pairs(Y, G_occ)
@@ -336,7 +349,7 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
     G = ls.estimate_channel(region, mf.ac_index, cfg)
     if cfg.smooth_channel:
         G = smooth.smooth_channel_estimate(G, cfg)
-    G_occ = G if _occupied(cfg)[0] else G[_occupied_on(cfg, G.device)]
+    G_occ = occupied_channel(G, cfg)
     W, gain = weights_mod.weights_for(cfg, G, G_occ, region, mf.ac_index)
 
     # the payload starts at the last access code's peak + M on the last

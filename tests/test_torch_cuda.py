@@ -33,7 +33,7 @@ from rub_mimo_tpu_torch.kernels import sc_sync as k5
 from rub_mimo_tpu_torch.ofdm import constellation
 from rub_mimo_tpu_torch.parallel import decode_sharded as ds
 from rub_mimo_tpu_torch.parallel import mesh as pmesh
-from rub_mimo_tpu_torch.pipeline import report, rx
+from rub_mimo_tpu_torch.pipeline import report, rx, streaming
 from rub_mimo_tpu_torch.utils import movsum
 
 pytestmark = pytest.mark.cuda
@@ -1268,3 +1268,87 @@ def test_second_replay_serves_its_own_capture():
             assert torch.equal(getattr(got, f)[0], getattr(ref, f)), f
     assert not bool(quiet.synced[0])
     assert not torch.equal(first.G, second.G)  # two channels
+
+
+# the streaming decoder at MID's widths: (config, chunk, chunks a
+# push_block call (1: push), the kernels each run must launch)
+_STREAM_SPEC = simulator.ChannelSpec(snr_db=30.0, delay=3000, seed=3)
+STREAM_PATHS = {
+    "push": (MID, 16384, 1, ("sc_metric_fused", "payload_fused_strip",
+                             "demap")),
+    "push_block": (MID, 16384, 4, ("sc_metric_fused", "payload_fused_strip",
+                                   "demap")),
+    "guard_bands": (MID.replace(use_all_carriers=False), 16384, 1,
+                    ("sc_metric_fused", "cp_strip", "demap")),
+    "track_channel": (MID.replace(track_channel=True, track_block_frames=4),
+                      16384, 1, ("sc_metric_fused", "cp_strip", "demap")),
+}
+
+
+def _stream(dec, cap: torch.Tensor, block: int) -> None:
+    """Push cap through dec, ``block`` chunks a call, then finalize."""
+    n = block * dec.C
+    calls = -(-cap.shape[-1] // n)
+    x = torch.nn.functional.pad(cap, (0, calls * n - cap.shape[-1]))
+    for i in range(calls):
+        piece = x[:, i * n:(i + 1) * n]
+        (dec.push if block == 1 else dec.push_block)(piece)
+    dec.finalize()
+
+
+@pytest.mark.parametrize("path", list(STREAM_PATHS))
+def test_streamed_decode_matches_eager(path):
+    """A capture streamed on the card equals the port's eager decode of
+    it in every integer (sync_index, the global decode_start, rx_data),
+    with SER 0, and the path launched its kernels: K6 in the seek, K1 in
+    the payload blocks and K4 in result(), or K7 and K4 where K1 does not
+    apply (guard bands; track_channel, whose groups decide with K4)."""
+    require_cuda()
+    cfg, C, block, kernels = STREAM_PATHS[path]
+    cap, tx, _ = simulator.simulate_capture(cfg, _STREAM_SPEC, device="cuda")
+    ref = rx.make_decoder(cfg, device="cuda")(cap)
+    wrappers = {"sc_metric_fused": k6.sc_metric_fused,
+                "payload_fused_strip": pf.payload_fused_strip,
+                "cp_strip": k7.cp_strip, "demap": k34.demap}
+    before = {k: w.launches for k, w in wrappers.items()}
+    dec = streaming.StreamingDecoder(cfg, device="cuda", chunk_size=C)
+    _stream(dec, cap, block)
+    rx_sig, rx_data = dec.result()
+    torch.cuda.synchronize()
+    ran = {k: w.launches - before[k] for k, w in wrappers.items()}
+    assert all(ran[k] >= 1 for k in kernels), ran
+    assert dec.synced and dec.sync_index == int(ref.sync_index)
+    assert dec.decode_start == (int(ref.sync_index) - cfg.symbol_len
+                                + int(ref.decode_start))
+    assert rx_data.device.type == "cuda" and rx_sig.dtype == torch.complex64
+    assert torch.equal(rx_data, ref.rx_data)
+    ser = report.score(ref._replace(rx_data=rx_data), tx,
+                       cfg).symbol_error_rate
+    assert ser == [0.0] * len(ser)
+
+
+def test_streamed_payload_does_not_synchronize():
+    """Payload-phase pushes raise nothing under
+    torch.cuda.set_sync_debug_mode("error"), which does raise on a host
+    read (chunks of 4096, the payload's 12 frames over several pushes)."""
+    require_cuda()
+    cfg, C = MID, 4096
+    cap, _, _ = simulator.simulate_capture(cfg, _STREAM_SPEC, device="cuda")
+    calls = -(-cap.shape[-1] // C)
+    x = torch.nn.functional.pad(cap, (0, calls * C - cap.shape[-1]))
+    chunks = [x[:, i * C:(i + 1) * C] for i in range(calls)]
+    dec = streaming.StreamingDecoder(cfg, device="cuda", chunk_size=C)
+    while dec.phase != "payload":
+        dec.push(chunks.pop(0))
+    torch.cuda.synchronize()
+    checked = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            int(cap[0, 0].real)
+        while dec.gpos + 2 * C < dec._burst_end:
+            dec.push(chunks.pop(0))
+            checked += 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert checked >= 1

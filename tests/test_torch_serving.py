@@ -10,12 +10,9 @@ within 1e-5 (torch_oracle.assert_decode_matches_jax); rx_sig within rtol
 1e-4, atol 1e-5 (tests/test_torch_decode.py); the payload window bit
 for bit."""
 
-import traceback
-
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax.numpy as jnp
 from rub_mimo_tpu.config import tiny_config
@@ -27,6 +24,7 @@ from rub_mimo_tpu_torch.io import simulator
 from rub_mimo_tpu_torch.models import presets
 from rub_mimo_tpu_torch.pipeline import rx
 import torch_oracle as oracle
+from torch_oracle import HostReads
 
 SERVE_CFG = tiny_config(bit_exact=False, pid_max=4)
 SERVE_SEEDS = (3, 9)  # tests/test_faults_batch.py's serving stack
@@ -191,34 +189,6 @@ def test_serving_entry_points_refuse():
                                           c, device="cpu")):
         with pytest.raises(TypeError):
             entry(oracle.TINY)
-
-
-class HostReads(TorchDispatchMode):
-    """Records each dispatched operator that would read a CUDA tensor
-    back to the host (a scalar read, a data-dependent output size) or
-    upload host data (a tensor made from a Python or numpy value), with
-    the port's frames that called it."""
-
-    NAMES = ("_local_scalar_dense", "lift_fresh", "nonzero",
-             "masked_select", "unique", "is_nonzero", "aten.equal",
-             "repeat_interleave.Tensor")
-
-    def __init__(self):
-        super().__init__()
-        self.hits = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func)
-        read = any(k in name for k in self.NAMES) or (
-            name.startswith("aten.index.Tensor")
-            and any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                    for i in args[1] if i is not None))
-        if read:
-            self.hits.append((name, [
-                f"{fr.filename.rsplit('/', 2)[-1]}:{fr.lineno}"
-                for fr in traceback.extract_stack()
-                if "rub_mimo_tpu_torch" in fr.filename][-3:]))
-        return func(*args, **(kwargs or {}))
 
 
 _BASE = dict(pid_max=12, bit_exact=False)

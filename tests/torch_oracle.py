@@ -9,9 +9,12 @@ reaches the port except as a numpy capture.
 
 from __future__ import annotations
 
+import traceback
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from rub_mimo_tpu.config import ModemConfig, tiny_config
 from rub_mimo_tpu_torch import convert
@@ -128,3 +131,31 @@ def require_cuda() -> torch.device:
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "false)")
     return torch.device("cuda")
+
+
+class HostReads(TorchDispatchMode):
+    """Records each dispatched operator that would read a CUDA tensor
+    back to the host (a scalar read, a data-dependent output size) or
+    upload host data (a tensor made from a Python or numpy value), with
+    the port's frames that called it."""
+
+    NAMES = ("_local_scalar_dense", "lift_fresh", "nonzero",
+             "masked_select", "unique", "is_nonzero", "aten.equal",
+             "repeat_interleave.Tensor")
+
+    def __init__(self):
+        super().__init__()
+        self.hits = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        read = any(k in name for k in self.NAMES) or (
+            name.startswith("aten.index.Tensor")
+            and any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                    for i in args[1] if i is not None))
+        if read:
+            self.hits.append((name, [
+                f"{fr.filename.rsplit('/', 2)[-1]}:{fr.lineno}"
+                for fr in traceback.extract_stack()
+                if "rub_mimo_tpu_torch" in fr.filename][-3:]))
+        return func(*args, **(kwargs or {}))
