@@ -7,7 +7,8 @@ NVIDIA GPU.
 Builds the port's CUDA kernels from the sources in this checkout (K1 the
 strip-fused payload tail, K2 the fused payload tail, K3 equalize +
 demap, K4 the hard demap, K5 the one-pass sync, K6 the S&C metric, K7
-the CP strip, K8 the halo exchange; one nvcc per source, all at once)
+the CP strip, K8 the halo exchange, and the Viterbi decoder; one nvcc
+per source, all at once)
 and holds each against its plain PyTorch version: K1 and K2 on seeded
 random payloads (the operating point, one frame per block, M = 64 and
 4096, an odd CP with an unaligned plane, 3 and 4 streams, 2 to 64
@@ -73,6 +74,23 @@ and K1 at the stream's shapes against their plain versions; its
 streaming lines print IQ samples/s for the stream and its payload
 phase, ms a payload push, host reads and kernels a call, and the
 device's busy time and idle share over the stream.
+It runs the coded chain (ofdm.fec) at the operating point: a payload of
+encode_payload(seed=42) at rates 1/2, 2/3 and 3/4 through the port's TX
+and channel, the default planes decode (K1) and decode_payload (the
+Viterbi kernel, csrc/viterbi.cu, which has no TPU counterpart: it
+replaces the JAX package's lax.scan pair), BER 0 on both lanes; the
+back end's stages (LLRs, deinterleave and depuncture, Viterbi, whole)
+timed; encode_data / decode_data of a full payload of seeded bytes (CRC
+and bytes exact); decode_payload_ml on the ML QPSK config (BER 0).  The
+Viterbi kernel is held bit for bit against viterbi_plain on the
+operating point's 2,500 windows, a 16,390-step codeword, seeded rows
+with exact ties and +-1e4 pads, and all-zero rows.  decode_with_sfo runs
+on the full-geometry SFO case (pid_max=64) at 20 and 100 ppm
+(|ppm_hat - ppm| < 0.1 ppm + 2, SER < 0.005) and at the operating point
+at 20 ppm (printed); the streaming decoder's live SFO correction on
+tests/test_sfo_streaming.py's three-burst 100 ppm capture (its
+thresholds, and equal to the port's CPU stream) and on the same layout
+at full geometry, 20 ppm (printed).
 Every launch count is set to 0 just before a path runs and read just
 after.  It decodes the
 checked-in golden capture, times the decodes and the kernels with CUDA
@@ -159,6 +177,9 @@ KERNELS = {
                  "rub_mimo_tpu/kernels/cp_strip.py:62"),
     "ring_shift_right": ("halo_dma", "ring_shift_right", "halo_dma",
                          "rub_mimo_tpu/kernels/halo_dma.py:68"),
+    # no TPU kernel: the JAX package's Viterbi is a lax.scan pair
+    "viterbi": ("viterbi", "viterbi", "viterbi",
+                "rub_mimo_tpu/ofdm/fec.py:141"),
 }
 SHARDED_G_RTOL, SHARDED_G_ATOL = 2e-4, 2e-5  # tests/test_parallel.py
 # K6's device ms before its redesign as a persistent span scan, quoted in
@@ -184,6 +205,7 @@ DEVICE_KERNELS = {
     "sc_metric": ("sc_metric_kernel",),
     "cp_strip": ("cp_strip_kernel",),
     "ring_shift_right": ("ring_shift_right_kernel",),
+    "viterbi": ("viterbi_kernel",),
 }
 
 
@@ -1377,6 +1399,329 @@ def streaming_phase(dev, card, cfg, cap, tx_data, r, cfg_cfo, cap_c, tx_c,
     return {"launches": launches, "paths": results}
 
 
+CODED_RATES = ("1/2", "2/3", "3/4")
+CODED_ITERS = 10      # timing runs of each coded back-end stage
+# float32 operations per state and step of the Viterbi recursion: the
+# branch metric's add (shared four ways, counted once), the candidate
+# add, the compare, the select, the max and the renormalising subtract
+VITERBI_OPS = 6
+SFO_PPMS = (20.0, 100.0)  # tests/test_sfo.py's full-geometry case
+
+
+def ber_by_lane(bits: torch.Tensor, msg: np.ndarray) -> list:
+    return [float(v) for v in (bits.cpu().numpy() != msg).mean(axis=-1)]
+
+
+def stage_busy(fn, iters: int = CODED_ITERS) -> dict:
+    """CUDA-event median of fn (ms), the device's busy ms per call from
+    torch.profiler and the idle share they give."""
+    t = cuda_ms(fn, iters=iters, warmup=2)
+    busy = device_busy(fn, n=3)["busy_ms"]
+    return {"event_ms": t["median_ms"], "wall_ms": t["wall_median_ms"],
+            "busy_ms": busy,
+            "idle_share": None if busy is None else 1.0 - busy
+            / t["median_ms"]}
+
+
+def coded_phase(dev, card, cfg) -> dict:
+    """The coded chain at the operating point: encode_payload(seed=42) at
+    each rate, the port's TX and channel, the default planes decode (K1)
+    and decode_payload (the Viterbi kernel), BER 0 on both lanes; the back
+    end's stages timed; encode_data / decode_data of a full payload of
+    seeded bytes; decode_payload_ml on the ML QPSK config.  Returns the
+    main path's counts and the Viterbi kernel's rows for the kernel
+    check."""
+    from rub_mimo_tpu_torch import Detector, ModemConfig, Modulation
+    from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.ofdm import constellation, fec
+    from rub_mimo_tpu_torch.pipeline import rx
+
+    spec = simulator.ChannelSpec(snr_db=30.0, delay=5000, seed=42)
+
+    def planes_of(c, txd):
+        cap, _, _ = simulator.simulate_capture(c, spec, tx_data=txd,
+                                               device=dev)
+        return cap.real.contiguous(), cap.imag.contiguous()
+
+    dec = rx.make_decoder(cfg, device=dev, input_format="planes")
+    main_counts, r_half, msg_half = None, None, None
+    for rate in CODED_RATES:
+        t0 = time.perf_counter()
+        msg, txd = fec.encode_payload(cfg, seed=42, rate=rate)
+        encode_s = time.perf_counter() - t0
+        planes = planes_of(cfg, txd)
+
+        def path(planes=planes, rate=rate):
+            r = dec(*planes)
+            return r, fec.decode_payload(r.rx_sig, cfg, rate=rate)
+
+        (r, bits), counts = drive(path)
+        ber = ber_by_lane(bits, msg)
+        ser = float((r.rx_data.cpu().numpy() != txd).mean())
+        emit({"phase": "coded", "rate": rate, "card": card,
+              "msg_bits": list(msg.shape), "ber": ber, "ser_uncoded": ser,
+              "launches": {k: v for k, v in counts.items() if v},
+              "encode_payload_host_s": encode_s})
+        require(counts["payload_fused_strip"] == 1
+                and counts["viterbi"] == 1,
+                f"coded {rate}: launches {counts}")
+        require(all(b == 0.0 for b in ber), f"coded {rate}: BER {ber}")
+        if rate == "1/2":
+            main_counts, r_half, msg_half = counts, r, msg
+        del planes
+
+    # the back end's stages at rate 1/2, on the decode's rx_sig
+    sig = r_half.rx_sig
+    n_msg = fec.message_bits_per_stream(cfg)
+    used = 2 * (n_msg + fec.TAIL)
+    S = cfg.num_streams
+
+    def llrs():
+        return constellation.soft_demodulate_llr(sig, cfg.modulation, 1.0)
+
+    lv = llrs().reshape(S, -1)
+
+    def deinterleave():
+        x = fec.deinterleave(lv, fec.INTERLEAVE_SPREAD)
+        return fec.depuncture_llrs(x[:, :fec._kept_bits(used, "1/2")], used,
+                                   "1/2")
+
+    dep = deinterleave()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    llrs()
+    torch.cuda.synchronize()
+    llr_peak = torch.cuda.max_memory_allocated() - base
+    stages = {
+        "llr": stage_busy(llrs),
+        "deinterleave_depuncture": stage_busy(deinterleave),
+        "viterbi": stage_busy(lambda: fec.viterbi_decode(dep, window=4096)),
+        "back_end": stage_busy(lambda: fec.decode_payload(sig, cfg)),
+    }
+    emit({"phase": "coded_stages", "card": card, "rate": "1/2",
+          "symbols": list(sig.shape), "coded_llrs": list(lv.shape),
+          "iters": CODED_ITERS, "llr_peak_bytes": llr_peak,
+          "llr_chunk": constellation.LLR_CHUNK, **stages})
+
+    # real bytes: a full payload of seeded bytes
+    data = np.random.default_rng(42).integers(
+        0, 256, fec.data_capacity_bytes(cfg), dtype=np.uint8).tobytes()
+    planes = planes_of(cfg, fec.encode_data(data, cfg))
+    (got, ok), counts = drive(lambda: fec.decode_data(dec(*planes), cfg))
+    emit({"phase": "coded_data", "card": card, "bytes": len(data),
+          "crc_ok": bool(ok), "exact": got == data,
+          "launches": {k: v for k, v in counts.items() if v}})
+    require(ok and got == data, "decode_data: CRC or bytes differ")
+    del planes
+
+    # joint soft-output ML on the ML QPSK config
+    mcfg = ModemConfig(detector=Detector.ML, modulation=Modulation.QPSK,
+                       pid_max=1000, bit_exact=False)
+    msg, txd = fec.encode_payload(mcfg, seed=42)
+    planes = planes_of(mcfg, txd)
+    mdec = rx.make_decoder(mcfg, device=dev, input_format="planes")
+    bits, counts = drive(lambda: fec.decode_payload_ml(mdec(*planes), mcfg))
+    ber = ber_by_lane(bits, msg)
+    t_ml = cuda_ms(lambda: fec.decode_payload_ml(mdec(*planes), mcfg),
+                   iters=3, warmup=1)
+    emit({"phase": "coded_ml", "card": card, "msg_bits": list(msg.shape),
+          "ber": ber, "launches": {k: v for k, v in counts.items() if v},
+          "decode_and_ml_back_end_ms": t_ml["median_ms"]})
+    require(counts["viterbi"] == 1 and counts["demap"] >= 1,
+            f"coded ML launches {counts}")
+    require(all(b == 0.0 for b in ber), f"coded ML: BER {ber}")
+    return {"counts": main_counts,
+            "rows": fec.viterbi_rows(dep, window=4096)}
+
+
+def viterbi_check(dev, card, rows) -> dict:
+    """The Viterbi kernel against viterbi_plain, bit for bit: the
+    operating point's rows (its coded decode's windows), one pinned
+    codeword of 16,390 steps, seeded rows with exact ties (zero LLRs)
+    and +-1e4 pads, pinned and windowed rows mixed, and all-zero rows.
+    Returns its row of the kernels line."""
+    from rub_mimo_tpu_torch.kernels import viterbi as kv
+
+    def seeded(seed, R, T):
+        rng = np.random.default_rng(seed)
+        p = (rng.standard_normal((R, T, 2)) * 2.0).astype(np.float32)
+        p[:, T // 5:T // 5 + 40] = 0.0
+        p[:, T // 2:T // 2 + 20] = 1e4
+        p[::2, T // 2 + 20:T // 2 + 30] = -1e4
+        return torch.as_tensor(p, device=dev)
+
+    cases = {
+        "operating_point": rows,
+        "codeword_16390": (seeded(16390, 1, 16390),
+                           torch.ones(1, dtype=torch.bool, device=dev)),
+        "ties_and_pads": (seeded(700, 37, 700),
+                          torch.arange(37, device=dev) % 2 == 0),
+        "all_zero": (torch.zeros((4, 500, 2), device=dev),
+                     torch.arange(4, device=dev) % 2 == 0),
+    }
+    out = {}
+    for name, (p, pin) in cases.items():
+        got = kv.viterbi(p, pin)
+        want = kv.viterbi_plain(p, pin)
+        torch.cuda.synchronize()
+        diff = int((got != want).sum())
+        out[name] = {"rows": p.shape[0], "steps": p.shape[1],
+                     "pinned_rows": int(pin.sum()), "bits_differing": diff}
+        require(diff == 0, f"viterbi {name}: {diff} bits differ")
+    p, pin = rows
+    R, T = p.shape[:2]
+    busy = device_busy(lambda: kv.viterbi(p, pin), n=10)["busy_ms"]
+    t_k = cuda_ms(lambda: kv.viterbi(p, pin), iters=10)
+    t_plain = cuda_ms(lambda: kv.viterbi_plain(p, pin), iters=2, warmup=0)
+    t_16k = cuda_ms(lambda: kv.viterbi(*cases["codeword_16390"]), iters=10)
+    b = bound(nbytes(p, pin) + R * T * 4, VITERBI_OPS * 64.0 * R * T)
+    emit({"phase": "viterbi_vs_plain", "card": card, "cases": out,
+          "kernel_busy_ms": busy, "kernel_event_ms": t_k["median_ms"],
+          "plain_ms": t_plain["median_ms"],
+          "codeword_16390_event_ms": t_16k["median_ms"], **b})
+    return {"max_abs_err": max(float(v["bits_differing"] > 0)
+                               for v in out.values()),
+            "ms": busy if busy is not None else t_k["median_ms"],
+            "timer": "profiler" if busy is not None else "cuda_events",
+            "plain_ms": t_plain["median_ms"], "bound": b,
+            "codeword_16390_ms": t_16k["median_ms"], "cases": out}
+
+
+def sfo_phase(dev, card) -> dict:
+    """decode_with_sfo on the full-geometry SFO case (pid_max=64) at 20 and
+    100 ppm, |ppm_hat - ppm| < 0.1 ppm + 2 and SER < 0.005, K1 and K4
+    counted; then the operating point at 20 ppm, printed."""
+    from rub_mimo_tpu_torch import ModemConfig
+    from rub_mimo_tpu_torch.estimate import sfo
+    from rub_mimo_tpu_torch.io import simulator
+
+    out = {}
+    for pid_max, ppms, iters in ((64, SFO_PPMS, 3), (1000, (20.0,), 2)):
+        c = ModemConfig(pid_max=pid_max, bit_exact=False)
+        n = c.pid_max * c.M_occupied
+        for ppm in ppms:
+            spec = simulator.ChannelSpec(snr_db=30.0, delay=5000, seed=42,
+                                         sfo_ppm=ppm)
+            cap, txd, _ = simulator.simulate_capture(c, spec, device=dev)
+            (r, d, _), counts = drive(
+                lambda: sfo.decode_with_sfo(cap, c, device=dev))
+            ppm_hat = float(d) * 1e6
+            ser = float((r.rx_data.cpu().numpy()[:, :n]
+                         != txd[:, :n]).mean())
+            t = cuda_ms(lambda: sfo.decode_with_sfo(cap, c, device=dev),
+                        iters=iters, warmup=1)
+            busy = device_busy(lambda: sfo.decode_with_sfo(cap, c,
+                                                           device=dev),
+                               n=1)["busy_ms"]
+            name = f"pid_max_{pid_max}_{ppm:g}_ppm"
+            out[name] = {"ppm_hat": ppm_hat, "ser": ser,
+                         "ms": t["median_ms"], "busy_ms": busy,
+                         "launches": {k: v for k, v in counts.items() if v}}
+            emit({"phase": "sfo", "case": name, "card": card,
+                  "capture": list(cap.shape), "ppm": ppm,
+                  "idle_share": None if busy is None
+                  else 1.0 - busy / t["median_ms"], **out[name]})
+            require(counts["payload_fused_strip"] >= 1
+                    and counts["demap"] >= 1 and counts["cp_strip"] >= 1,
+                    f"decode_with_sfo launches {counts}")
+            if pid_max == 64:
+                require(abs(ppm_hat - ppm) < 0.1 * ppm + 2.0,
+                        f"{name}: ppm_hat {ppm_hat}")
+                require(ser < 0.005, f"{name}: SER {ser}")
+            del cap
+    return out
+
+
+def three_bursts(cfg, dev, ppm: float):
+    """tests/test_sfo_streaming.py's capture built by the port: three
+    frames (payload seeds 1, 2, 3) a replay window and three symbols
+    apart, 35 dB, channel seed 3, sfo_ppm (capture, tx data of each)."""
+    from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.ofdm import framegen
+
+    spec = simulator.ChannelSpec(snr_db=35.0, delay=0, trailing=0, seed=3,
+                                 sfo_ppm=ppm)
+    h = simulator.draw_channel(spec, 2, 2)
+    data = [framegen.generate_payload_symbols(cfg, seed=s) for s in (1, 2, 3)]
+    gap = cfg.window_len + 3 * cfg.symbol_len
+    parts = [torch.zeros((2, 300), dtype=torch.complex64, device=dev)]
+    for d in data:
+        t = framegen.transmit_frame(cfg, d, device=dev)
+        parts += [t, torch.zeros((2, max(64, gap - t.shape[-1])),
+                                 dtype=torch.complex64, device=dev)]
+    parts.append(torch.zeros((2, 500), dtype=torch.complex64, device=dev))
+    return simulator.apply_channel(torch.cat(parts, dim=-1), h, spec,
+                                   cfg), data
+
+
+def stream_sfo(cfg, cap: torch.Tensor, C: int, device):
+    """cap streamed with sfo_correct in chunks of C on ``device`` and
+    finalized: (decoder, wall seconds, each burst's SER)."""
+    from rub_mimo_tpu_torch.pipeline import streaming
+
+    dec = streaming.StreamingDecoder(cfg, device=device, chunk_size=C,
+                                     sfo_correct=True)
+    x = torch.nn.functional.pad(cap, (0, -(-cap.shape[-1] // C) * C
+                                      - cap.shape[-1])).to(device)
+    sync_all()
+    t0 = time.perf_counter()
+    for i in range(x.shape[-1] // C):
+        dec.push(x[:, i * C:(i + 1) * C])
+    dec.finalize()
+    sync_all()
+    return dec, time.perf_counter() - t0
+
+
+def streaming_sfo_phase(dev, card) -> dict:
+    """Live SFO correction (StreamingDecoder(sfo_correct=True)): the
+    three-burst 100 ppm capture at tests/test_sfo_streaming.py's tiny
+    geometry on the card, held to that test's thresholds and equal to the
+    port's CPU stream of the same capture; then the three-burst layout at
+    full geometry (pid_max=64, 20 ppm), printed."""
+    from rub_mimo_tpu_torch import ModemConfig, Modulation, tiny_config
+
+    out = {}
+    for name, cfg, ppm, C in (
+            ("tiny_100_ppm", tiny_config(
+                bit_exact=False, pid_max=64, modulation=Modulation.QAM16,
+                track_channel=True, sync_fallback=True), 100.0, 512),
+            ("full_geometry_20_ppm", ModemConfig(
+                pid_max=64, bit_exact=False, track_channel=True), 20.0,
+             65536)):
+        cap, data = three_bursts(cfg, dev, ppm)
+        (dec, wall), counts = drive(lambda: stream_sfo(cfg, cap, C, dev))
+        n = cfg.pid_max * cfg.M_occupied
+        sers = [float((d.cpu().numpy()[:, :n] != tx[:, :n]).mean())
+                for (_, _, d), tx in zip(dec.burst_results(), data)]
+        rec = {"bursts": len(dec.bursts), "sfo_hat_ppm": dec.sfo_hat * 1e6,
+               "ser_by_burst": sers, "stream_s": wall,
+               "iq_samples_per_s": cap.shape[-1] / wall,
+               "host_reads": dec.host_reads,
+               "launches": {k: v for k, v in counts.items() if v}}
+        if name.startswith("tiny"):
+            cpu, _ = stream_sfo(cfg, cap.cpu(), C, "cpu")
+            same = (len(cpu.bursts) == len(dec.bursts)
+                    and all(si == sj and torch.equal(a.cpu(), b)
+                            for (si, _, a), (sj, _, b) in zip(
+                                dec.burst_results(), cpu.burst_results())))
+            rec.update(cpu_sfo_hat_ppm=cpu.sfo_hat * 1e6,
+                       equal_to_cpu_stream=same)
+            require(len(dec.bursts) == 3, f"{name}: {len(dec.bursts)} bursts")
+            require(abs(dec.sfo_hat * 1e6 - 100.0) < 15.0,
+                    f"{name}: sfo_hat {dec.sfo_hat * 1e6} ppm")
+            require(sers[1] < 0.6 * sers[0] and sers[2] < 0.6 * sers[0],
+                    f"{name}: SER by burst {sers}")
+            require(same and abs(cpu.sfo_hat - dec.sfo_hat) < 1e-6,
+                    f"{name}: the card's stream differs from the CPU's")
+            require(counts["cp_strip"] >= 1 and counts["demap"] >= 1,
+                    f"{name}: launches {counts}")
+        emit({"phase": "streaming_sfo", "case": name, "card": card,
+              "capture": list(cap.shape), "chunk": C, "ppm": ppm, **rec})
+        out[name] = rec
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
@@ -1392,6 +1737,7 @@ def main() -> None:
     from rub_mimo_tpu_torch.kernels import payload_fused as pf
     from rub_mimo_tpu_torch.kernels import sc_metric as k6
     from rub_mimo_tpu_torch.kernels import sc_sync as k5
+    from rub_mimo_tpu_torch.kernels import viterbi as kv
     from rub_mimo_tpu_torch.models import presets
     from rub_mimo_tpu_torch.parallel import mesh as pmesh
     from rub_mimo_tpu_torch.ofdm import constellation
@@ -1413,6 +1759,7 @@ def main() -> None:
     k5._kernel()
     k6._kernel()
     k8._lib()
+    kv._kernel_fn()
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2318,6 +2665,13 @@ def main() -> None:
                                torch.complex(re_c, im_c), tx_c, rc, p_re,
                                p_im)
 
+    # ---- phase 13: the coded chain, the Viterbi kernel, SFO ----
+    coded = coded_phase(dev, card, cfg)
+    vit = viterbi_check(dev, card, coded["rows"])
+    del coded["rows"]
+    sfo_phase(dev, card)
+    streaming_sfo_phase(dev, card)
+
     # ---- the kernels line: bounds from this run's inputs ----
     K_op = len(tab)
     x2, W2, g2, _, _ = cases["payload_fused"]["args"]
@@ -2347,6 +2701,7 @@ def main() -> None:
         # K8 reads the halos of shards 0..2 and writes all four
         "ring_shift_right": bound(
             nbytes(op_stack[:-1], op_stack), 0.0),
+        "viterbi": vit["bound"],
     }
     launched = {
         "payload_fused_strip": launches,
@@ -2357,6 +2712,7 @@ def main() -> None:
         "sc_metric": counts_debug["sc_metric"],
         "cp_strip": impl_counts["fused"]["cp_strip"],
         "ring_shift_right": shard_counts["pallas_dma_4x1"]["ring_shift_right"],
+        "viterbi": coded["counts"]["viterbi"],
     }
     errors = {
         "payload_fused_strip": main_cmp["max_abs_err"],
@@ -2367,6 +2723,7 @@ def main() -> None:
         "sc_metric": k6_cmp["max_abs_err"],
         "cp_strip": cases["cp_strip"]["max_abs_err"],
         "ring_shift_right": k8_err,
+        "viterbi": vit["max_abs_err"],
     }
     no_fire_bound = bound(nbytes(no_fire), 18.0 * no_fire.numel())
     # K4's integer decisions: its mismatches and their largest top-2 margin
@@ -2421,7 +2778,15 @@ def main() -> None:
                      "blocks_per_sm"],
                  "chunk": k6_split["operating_point"]["geometry"]["chunk"]},
              "ring_shift_right": {
-                 "note": "bound well under 1 us: its time is launch latency"}}
+                 "note": "bound well under 1 us: its time is launch latency"},
+             "viterbi": {
+                 "tpu_kernel": None,
+                 "note": "replaces the JAX package's lax.scan pair",
+                 "timer": vit["timer"],
+                 "launches_per_coded_decode": coded["counts"]["viterbi"],
+                 "codeword_16390_event_ms": vit["codeword_16390_ms"],
+                 "cases": vit["cases"]}}
+    dev_ms["viterbi"] = (vit["ms"], vit["plain_ms"], None)
     # launches of each kernel in one replay of each served path's graph
     for name in KERNELS:
         per = {path: v["launches_per_replay"][name]

@@ -1,8 +1,8 @@
 """Joint maximum-likelihood MIMO detection by exhaustive search.
 
-Port of rub_mimo_tpu/detect/ml.py (ml_detect, ml_equalize; the soft
-ml_soft_llrs belongs with forward error correction).  Per subcarrier and
-OFDM symbol
+Port of rub_mimo_tpu/detect/ml.py (ml_detect, ml_equalize and the soft
+output ml_soft_llrs that ofdm/fec.decode_payload_ml decodes).  Per
+subcarrier and OFDM symbol
 
     s_hat = argmin_{s in A^T} |y - G s|^2
           = argmin_s |G s|^2 - 2 Re(y^H G s)
@@ -60,6 +60,43 @@ def ml_detect(Y: torch.Tensor, G_occ: torch.Tensor, cfg: ModemConfig,
         best = torch.argmin(e[None] - 2.0 * dot, dim=-1)  # [b, n_sc]
         out.append(idx[best])                        # [b, n_sc, tx]
     return torch.cat(out).transpose(1, 2).to(torch.int32).contiguous()
+
+
+def ml_soft_llrs(Y: torch.Tensor, G_occ: torch.Tensor, cfg: ModemConfig,
+                 noise_var: float | torch.Tensor = 1.0,
+                 block: int = 16) -> torch.Tensor:
+    """Max-log-MAP bit LLRs of the joint lattice search (soft-output ML):
+    llr_j = (min over candidates with bit j = 1 of |y - Gc|^2 - min over
+    those with bit j = 0) / noise_var, so the inter-stream interference is
+    marginalized in the lattice.  Positive -> bit 0, bits MSB-first per
+    symbol and stream.  Y: [n_sym, rx, n_sc] -> [n_sym, tx, n_sc, bps].
+
+    The candidate index is the tx streams' bits MSB-first (the last
+    stream fastest), so bit j splits it as [2^j, 2, 2^(nbits-1-j)] and
+    each masked minimum is a reduction over a view."""
+    n_sym, _, n_sc = Y.shape
+    n_tx = G_occ.shape[-1]
+    bps = cfg.modulation.bits_per_symbol
+    nbits = n_tx * bps
+    pts, _ = _combos_on(cfg.modulation, n_tx, Y.device)
+    GS = torch.einsum("krt,ct->krc", G_occ, pts)     # [n_sc, rx, C]
+    e = torch.sum(GS.abs() ** 2, dim=1)              # [n_sc, C]
+    out = []
+    for b0 in range(0, n_sym, block):
+        yb = Y[b0:b0 + block]                        # [b, rx, n_sc]
+        d2 = (torch.sum(yb.abs() ** 2, dim=1)[:, :, None]
+              - 2.0 * torch.einsum("nrk,krc->nkc", torch.conj(yb), GS).real
+              + e[None])                             # [b, n_sc, C]
+        nb = d2.shape[0]
+        llr = torch.empty((nb, n_sc, nbits), dtype=torch.float32,
+                          device=Y.device)
+        for j in range(nbits):
+            v = d2.view(nb, n_sc, 1 << j, 2, 1 << (nbits - 1 - j))
+            llr[..., j] = (v[:, :, :, 1].amin(dim=(2, 3))
+                           - v[:, :, :, 0].amin(dim=(2, 3)))
+        out.append(llr)
+    llrs = torch.cat(out).reshape(n_sym, n_sc, n_tx, bps).transpose(1, 2)
+    return llrs / constellation._f32(noise_var)
 
 
 def ml_equalize(Y: torch.Tensor, G_occ: torch.Tensor, cfg: ModemConfig,

@@ -1,13 +1,14 @@
 """Synthetic MIMO channel simulator — stands in for the USRP radios.
 
 Port of rub_mimo_tpu/io/simulator.py: seeded flat or FIR MIMO mixing, a
-carrier frequency offset, a leading delay (timing offset), trailing
-silence and AWGN.  The channel
+carrier frequency offset, a sampling-clock offset (SFO, resampled by
+utils.resample.resample_bandlimited), a leading delay (timing offset),
+trailing silence and AWGN.  The channel
 draw is numpy and gives the same ``h`` as the JAX package for the same
 seed; the noise comes from a seeded ``torch.Generator`` on the capture's
 device, so it does NOT match ``jax.random`` — parity tests compare the
 noise-free signal (snr_db=inf) or feed one capture to both decoders.
-SFO, IQ imbalance, DC offset and drift are not ported yet.
+IQ imbalance, DC offset and drift are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from rub_mimo_tpu_torch.config import ModemConfig, check_config
 from rub_mimo_tpu_torch.ofdm import framegen
+from rub_mimo_tpu_torch.utils import resample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +37,7 @@ class ChannelSpec:
     seed: int = 1234
     identity: bool = False      # H = I (loopback)
     diagonal_dominance: float = 2.0  # scales the diagonal of random H
+    sfo_ppm: float = 0.0        # sampling-clock offset, parts per million
 
 
 def draw_channel(spec: ChannelSpec, num_rx: int, num_tx: int) -> np.ndarray:
@@ -63,7 +66,8 @@ def apply_channel(tx: torch.Tensor, h: np.ndarray, spec: ChannelSpec,
     """Propagate tx [tx_streams, T] through h: returns rx
     [rx_streams, T + delay + trailing + taps - 1] complex64 on tx's
     device, rotated by the CFO (which needs cfg for the subcarrier
-    spacing), with AWGN at spec.snr_db against the mean tx power."""
+    spacing), resampled at t * (1 + sfo_ppm 1e-6), with AWGN at
+    spec.snr_db against the mean tx power."""
     h = torch.as_tensor(h, device=tx.device)
     taps = h.shape[-1]
     T = tx.shape[-1]
@@ -80,6 +84,8 @@ def apply_channel(tx: torch.Tensor, h: np.ndarray, spec: ChannelSpec,
             raise ValueError("cfo requires cfg for subcarrier spacing")
         n = torch.arange(y.shape[-1], dtype=torch.float32, device=y.device)
         y = y * torch.exp(2j * np.pi * spec.cfo_subcarriers * n / cfg.M)
+    if spec.sfo_ppm != 0.0:
+        y = resample.resample_bandlimited(y, 1.0 + spec.sfo_ppm * 1e-6)
     y = torch.nn.functional.pad(y, (spec.delay, spec.trailing))
 
     sig_power = torch.mean(tx.real ** 2 + tx.imag ** 2)

@@ -28,8 +28,17 @@ the seek, so a following burst is found too.  Positions are host ints;
 the frames stay on the device.  ``host_reads`` counts the device-to-host
 reads the decoder made.
 
-Not ported: the blind front-end compensation (frontend_comp) and the live
-SFO correction (sfo_correct), which raise NotImplementedError.
+Live SFO correction (sfo_correct, with track_channel): each tracked
+payload block adds the offline estimator's frame-differential moment z
+(estimate.sfo) of its statically equalized frames against the tracked
+decisions, on the device with no read.  At a re-arm z is fitted (one
+read) and folded into ``sfo_hat``, and a StreamingResampler
+(utils.resample) engages at the replay's start, preloaded with raw
+history: the replay and every later chunk go through it, so the next
+bursts decode from the corrected stream.
+
+Not ported: the blind front-end compensation (frontend_comp), which
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from rub_mimo_tpu_torch.detect import (alamouti, dispatch, postprocess,
 from rub_mimo_tpu_torch.detect import weights as weights_mod
 from rub_mimo_tpu_torch.estimate import cfo as cfo_mod
 from rub_mimo_tpu_torch.estimate import ls, smooth
+from rub_mimo_tpu_torch.estimate import sfo as sfo_mod
 from rub_mimo_tpu_torch.kernels import cp_strip as cp_strip_mod
 from rub_mimo_tpu_torch.kernels import payload_fused
 from rub_mimo_tpu_torch.kernels import sc_metric as k6
@@ -54,6 +64,7 @@ from rub_mimo_tpu_torch.kernels import sc_sync as k5
 from rub_mimo_tpu_torch.ofdm import constellation
 from rub_mimo_tpu_torch.pipeline import rx
 from rub_mimo_tpu_torch.sync import matched_filter, schmidl_cox, xcorr_sync
+from rub_mimo_tpu_torch.utils import resample
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
 from rub_mimo_tpu_torch.utils.movsum import moving_sum
 
@@ -97,9 +108,11 @@ class StreamingDecoder:
                  warmup_chunks: int = 4, sfo_correct: bool = False):
         """A chunked decoder of cfg's frames on ``device`` (a CUDA request
         without CUDA raises).  Chunks are [num_streams, chunk_size],
-        chunk_size >= symbol_len.  frontend_comp and sfo_correct are not
-        ported and raise NotImplementedError; warmup_chunks belongs to
-        frontend_comp."""
+        chunk_size >= symbol_len.  sfo_correct (which needs
+        cfg.track_channel) corrects the sampling-clock offset live, from
+        the second burst on (see the module note).  frontend_comp is not
+        ported and raises NotImplementedError; warmup_chunks belongs to
+        it."""
         check_config(cfg, "StreamingDecoder")
         cfg.validate()
         if frontend_comp:
@@ -107,11 +120,12 @@ class StreamingDecoder:
                 "StreamingDecoder(frontend_comp=True) needs the front-end "
                 "estimator (estimate/frontend.py), not ported yet: ROADMAP "
                 "queue 1 item 5")
-        if sfo_correct:
-            raise NotImplementedError(
-                "StreamingDecoder(sfo_correct=True) needs estimate/sfo.py and "
-                "the StreamingResampler (utils/resample.py), not ported "
-                "yet: ROADMAP queue 1 item 4")
+        self._sfo_on = bool(sfo_correct)
+        if self._sfo_on and not cfg.track_channel:
+            raise ValueError(
+                "sfo_correct requires cfg.track_channel=True (the tracked "
+                "refits are both the live equalizer under drift and the "
+                "SFO observable)")
         self.cfg = cfg
         self.device = rx._on_device(device)
         self.C = int(chunk_size)
@@ -130,7 +144,11 @@ class StreamingDecoder:
         self._use_k1 = rx.kernel_applicable(cfg, "auto")
         self._table = constellation.table(cfg.modulation)
         self._nloc = self.C // sym + 1
-        self._gf = max(1, min(cfg.track_block_frames, self._nloc))
+        # live SFO estimation needs groups fine enough for the tracker to
+        # out-pace the ramp (decode_with_sfo's rule)
+        gf = (min(cfg.track_block_frames, 4) if self._sfo_on
+              else cfg.track_block_frames)
+        self._gf = max(1, min(gf, self._nloc))
         self.host_reads = 0
         self.gpos = 0  # global samples consumed
         self.bursts: List[BurstRecord] = []
@@ -145,6 +163,12 @@ class StreamingDecoder:
         self.W = self.gain = self.G = self._G_occ = None
         self._reset()
         self._in_replay = False  # re-arm replay in progress
+        # live SFO: the accumulated fractional-rate estimate (host), the
+        # resampler (engaged at the first re-arm) and the moment z
+        self.sfo_hat = 0.0
+        self._resampler: Optional[resample.StreamingResampler] = None
+        self._sfo_z = torch.zeros((self.m_occ,), dtype=torch.complex64,
+                                  device=self.device)
 
     def _zeros(self, n: int) -> torch.Tensor:
         return torch.zeros((self.S, n), dtype=torch.complex64,
@@ -271,7 +295,15 @@ class StreamingDecoder:
         if tuple(chunk.shape) != (self.S, self.C):
             raise ValueError(f"chunk must be [{self.S}, {self.C}], got "
                              f"{tuple(chunk.shape)}")
-        return self._push_inner(self._to_device(chunk))
+        chunk = self._to_device(chunk)
+        if self._resampler is None:
+            return self._push_inner(chunk)
+        # live SFO engaged: the decoder takes the resampler's output
+        # chunks, which lag the input by its window's lookahead
+        emitted: Frames = []
+        for c in self._resampler.push(chunk):
+            emitted += self._push_inner(c)
+        return emitted
 
     def push_block(self, samples) -> Frames:
         """Feed K chunks at once ([S, K*chunk_size], numpy or tensor,
@@ -280,8 +312,9 @@ class StreamingDecoder:
         While the decoder is seeking, each chunk's seek step runs on the
         device with no read in between, and the K fired flags are read
         once.  With no fire the scanned state is committed; on a fire (or
-        in any other phase, for K = 1, or with the fallback sync, which
-        needs per-chunk host logic) the block goes chunk by chunk through
+        in any other phase, for K = 1, with the fallback sync, which
+        needs per-chunk host logic, or with the live SFO resampler
+        engaged) the block goes chunk by chunk through
         the ordinary path from the unchanged state, so the result equals
         chunk-at-a-time feeding."""
         C = self.C
@@ -292,7 +325,8 @@ class StreamingDecoder:
         K = shape[1] // C
         x = self._to_device(samples)
         chunks = [x[:, k * C:(k + 1) * C] for k in range(K)]
-        fast_ok = self.phase == "seek" and K > 1 and not self.cfg.sync_fallback
+        fast_ok = (self.phase == "seek" and K > 1
+                   and not self.cfg.sync_fallback and self._resampler is None)
         if not fast_ok:
             emitted: Frames = []
             for c in chunks:
@@ -499,10 +533,9 @@ class StreamingDecoder:
             g = replay_start + i * C
             assert gpos0 - g <= L, "re-arm replay out of ring"
             # copied out: the replay writes the ring again
-            data = self._ring_read((self._q_r + (g - self._q_gpos)) % L)
-            if self.cfg.correct_cfo and self._eps0 != 0.0:
-                data = self._derotate(data, -self._eps0, g, 0.0)
-            chunks.append(data.clone())
+            chunks.append(self._raw_chunk(g).clone())
+        if self._sfo_on:
+            chunks = self._sfo_rearm(chunks, replay_start, gpos0)
         self._reset()
         emitted: Frames = []
         self.gpos = replay_start
@@ -514,6 +547,48 @@ class StreamingDecoder:
             self._in_replay = False
         assert self.gpos <= gpos0, "re-arm replay position mismatch"
         return emitted
+
+    def _raw_chunk(self, g: int) -> torch.Tensor:
+        """The ring's C samples from global position g, the burst's coarse
+        derotation undone (a view where nothing is undone)."""
+        data = self._ring_read((self._q_r + (g - self._q_gpos))
+                               % self._ring_len)
+        if self.cfg.correct_cfo and self._eps0 != 0.0:
+            data = self._derotate(data, -self._eps0, g, 0.0)
+        return data
+
+    def _sfo_rearm(self, chunks: List[torch.Tensor], replay_start: int,
+                   gpos0: int) -> List[torch.Tensor]:
+        """Fit the burst's SFO moment (one read) into sfo_hat, engage or
+        retune the resampler, and reset the moment.  The resampler engages
+        at replay_start, not gpos0 (the next preamble may already sit in
+        the replay, and the estimation region must not straddle a
+        raw/resampled seam): its ring is preloaded with the raw history
+        before replay_start, and the replay goes through it.  Returns the
+        chunks to replay (the resampler's output lags by its lookahead)."""
+        delta_inc = self._read(sfo_mod.fit_subcarrier_slope(self._sfo_z,
+                                                            self.cfg))
+        self._sfo_z = torch.zeros_like(self._sfo_z)
+        if not np.isfinite(delta_inc) or delta_inc == 0.0:
+            return chunks
+        self.sfo_hat += delta_inc
+        factor = 1.0 / (1.0 + self.sfo_hat)
+        if self._resampler is not None:
+            self._resampler.set_factor(factor)
+            return chunks
+        rs = resample.StreamingResampler(self.S, self.C, factor=factor,
+                                         origin=replay_start,
+                                         device=self.device)
+        for i in range(-(-(rs.margin + 16) // self.C), 0, -1):
+            g = replay_start - i * self.C
+            if g < 0 or gpos0 - g > self._ring_len:
+                continue
+            rs.preload_history(self._raw_chunk(g), g)
+        self._resampler = rs
+        out: List[torch.Tensor] = []
+        for data in chunks:
+            out += rs.push(data)
+        return out
 
     # -- the payload step ---------------------------------------------- #
     def _payload_block(self, data: torch.Tensor, data_gpos: int) -> Frames:
@@ -553,7 +628,14 @@ class StreamingDecoder:
             if cfg.mode == CommMode.ALAMOUTI:
                 return self._emit_alamouti(Y, k0)
             if cfg.track_channel:
-                eq = self._track(Y)
+                eq, s_hat = self._track(Y)
+                if self._sfo_on:
+                    # the SFO moment of this block's frames: statically
+                    # equalized (the ramp intact) against the tracked
+                    # decisions, adjacent frames; kept on the device
+                    r = zf.equalize(Y, self.W, self.gain) * torch.conj(s_hat)
+                    self._sfo_z = self._sfo_z + torch.sum(
+                        r[1:] * torch.conj(r[:-1]), dim=(0, 1))
             else:
                 eq = dispatch.equalize_dispatch(Y, self._G_occ, self.W,
                                                 self.gain, cfg)
@@ -565,17 +647,18 @@ class StreamingDecoder:
                 out.append((k, f))
         return out
 
-    def _track(self, Y: torch.Tensor) -> torch.Tensor:
+    def _track(self, Y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Channel tracking within a block: groups of gf frames (the last
         padded with zero frames), each equalized with the carried channel
         (ZF), decided (K4 on CUDA) and refit from its frames' decisions,
-        the refit blended in; the channel is carried across blocks."""
+        the refit blended in; the channel is carried across blocks.
+        Returns (eq, the decided points s_hat), both [n, S, m_occ]."""
         cfg = self.cfg
         n, S, m_occ = Y.shape
         gf, a = self._gf, float(np.float32(cfg.track_alpha))
         table = constellation.table_on(cfg.modulation, Y.device)
         G_occ = self._G_occ
-        eqs = []
+        eqs, s_hats = [], []
         for g0 in range(0, n, gf):
             Yb = Y[g0:g0 + gf]
             nb = Yb.shape[0]
@@ -587,14 +670,15 @@ class StreamingDecoder:
             eq = zf.equalize(Yb, W, gain)
             s_hat = table[constellation.demodulate(eq, cfg.modulation).long()]
             if nb < gf:  # the padding frames take no part in the refit
-                s_hat[nb:] = 0
+                s_hat[nb:].zero_()
             G_new = tracking.ls_refit(Yb, s_hat)
             G_occ = ((1.0 - a) * G_occ + a * G_new).to(torch.complex64)
             eqs.append(eq[:nb])
+            s_hats.append(s_hat[:nb])
         self._G_occ = G_occ
         self.G = (G_occ if G_occ.shape[0] == cfg.M else self.G.index_copy(
             0, rx._occupied_on(cfg, Y.device), G_occ))
-        return torch.cat(eqs)
+        return torch.cat(eqs), torch.cat(s_hats)
 
     def _emit_alamouti(self, Y: torch.Tensor, k0: int) -> Frames:
         """Keep each raw frame until its pair's mate arrives, then combine
@@ -619,14 +703,19 @@ class StreamingDecoder:
         return out
 
     def finalize(self) -> Frames:
-        """Flush the queued payload with zero padding (what the offline
-        decode's zero-extended window holds)."""
+        """Flush the live SFO resampler's lookahead, then the queued
+        payload with zero padding (what the offline decode's zero-extended
+        window holds)."""
+        out: Frames = []
+        if self._resampler is not None:
+            for c in self._resampler.flush():
+                out += self._push_inner(c)
         if self.phase != "payload" or self._q_count == 0:
-            return []
+            return out
         pad = self.C - (self._q_count % self.C)
         if pad != self.C:
             self._enqueue(self._zeros(pad), self._q_gpos + self._q_count)
-        return self._drain()
+        return out + self._drain()
 
     # ------------------------------------------------------------------ #
     def _assemble(self, frames: Dict[int, torch.Tensor]):

@@ -1,10 +1,11 @@
 """The port on an NVIDIA GPU: the CUDA kernels (K1 strip-fused payload
 tail, K2 fused payload tail, K3 equalize + demap, K4 hard demap, K5
-one-pass sync, K6 S&C metric, K7 CP strip, K8 halo exchange) against
-their plain PyTorch versions, the decode on the card against the decode
-on the CPU, on every payload tail and mode, and the sharded decode on
-one-card meshes against the single-device decode, with the launch counts
-of each path.  On several cards: K1/K2 on each card, K8 pulling halos
+one-pass sync, K6 S&C metric, K7 CP strip, K8 halo exchange, and the
+Viterbi of the coded chain) against their plain PyTorch versions, the
+decode on the card against the decode on the CPU, on every payload tail
+and mode (and the coded chain, decode_with_sfo and the streamed SFO
+correction), and the sharded decode on one-card meshes against the
+single-device decode, with the launch counts of each path.  On several cards: K1/K2 on each card, K8 pulling halos
 across cards (and the ordering of its read), the sharded decode with one
 shard per card and batched serving over the cards.  Every test here is
 marked ``cuda`` and skips without a GPU (the multi-card ones with fewer
@@ -1352,3 +1353,136 @@ def test_streamed_payload_does_not_synchronize():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert checked >= 1
+
+
+# ---- the Viterbi kernel, the coded chain and the SFO paths ----
+def viterbi_pairs(seed: int, rows: int, T: int) -> torch.Tensor:
+    """Seeded LLR pairs [rows, T, 2] with exact ties (zero stretches) and
+    +-1e4 pad-level stretches."""
+    rng = np.random.default_rng(seed)
+    p = (rng.standard_normal((rows, T, 2)) * 2.0).astype(np.float32)
+    p[:, T // 5:T // 5 + 40] = 0.0
+    p[:, T // 2:T // 2 + 20] = 1e4
+    p[::2, T // 2 + 20:T // 2 + 30] = -1e4
+    return torch.as_tensor(p)
+
+
+@pytest.mark.parametrize("rows,T", [(1, 1), (3, 31), (5, 33), (37, 700),
+                                    (9, 4352)])
+def test_viterbi_kernel_matches_plain(rows, T):
+    """Bit for bit with viterbi_plain in both modes (pinned rows and
+    uniform-prior windows mixed in one launch), one launch counted."""
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.kernels import viterbi as kv
+
+    pairs = viterbi_pairs(rows * 1000 + T, rows, T)
+    pinned = torch.arange(rows) % 2 == 0
+    want = kv.viterbi_plain(pairs, pinned)
+    before = kv.viterbi.launches
+    got = kv.viterbi(pairs.to(dev), pinned.to(dev))
+    torch.cuda.synchronize()
+    assert kv.viterbi.launches == before + 1
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    zeros = torch.zeros((2, 100, 2))  # every comparison a tie
+    both = torch.tensor([True, False])
+    assert torch.equal(kv.viterbi(zeros.to(dev), both.to(dev)).cpu(),
+                       kv.viterbi_plain(zeros, both))
+
+
+def test_viterbi_kernel_rejects_what_it_cannot_take():
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.kernels import viterbi as kv
+
+    ok = torch.zeros((2, 8, 2), device=dev)
+    flags = torch.zeros(2, dtype=torch.bool, device=dev)
+    for bad in (ok.double(), ok[:, :, :1].contiguous(), ok.transpose(0, 1),
+                torch.zeros((2, 0, 2), device=dev)):
+        with pytest.raises(ValueError):
+            kv.viterbi(bad, flags[:bad.shape[0]])
+    with pytest.raises(ValueError):
+        kv.viterbi(ok, flags.cpu())
+
+
+@pytest.mark.parametrize("rate", ["1/2", "3/4"])
+def test_coded_decode_on_card_matches_cpu(rate):
+    """encode_payload -> capture -> decode -> decode_payload on the card
+    equals the same chain on the CPU (windowed: 260 frames of QPSK at M =
+    64 exceed 4 x 4096 steps), BER 0, the Viterbi launched once."""
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.kernels import viterbi as kv
+    from rub_mimo_tpu_torch.ofdm import fec
+
+    cfg = tiny_config(bit_exact=False, pid_max=260)
+    msg, txd = fec.encode_payload(cfg, seed=5, rate=rate)
+    spec = simulator.ChannelSpec(snr_db=20.0, delay=300, seed=3)
+    cap, _, _ = simulator.simulate_capture(cfg, spec, tx_data=txd,
+                                           device="cpu")
+    cpu = fec.decode_payload(rx.make_decoder(cfg, device="cpu")(cap).rx_sig,
+                             cfg, rate=rate)
+    before = kv.viterbi.launches
+    card = fec.decode_payload(rx.make_decoder(cfg, device=dev)(cap).rx_sig,
+                              cfg, rate=rate)
+    assert kv.viterbi.launches == before + 1
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), cpu)
+    assert np.array_equal(n(card), msg)
+
+
+def test_decode_with_sfo_on_card_matches_cpu():
+    """The two-pass SFO flow at 100 ppm on the card: its delta within 1e-6
+    of the CPU flow's, the decisions equal, everything on the card."""
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.estimate import sfo
+
+    cfg = tiny_config(bit_exact=False, pid_max=64,
+                      modulation=Modulation.QAM16, sync_fallback=True)
+    spec = simulator.ChannelSpec(snr_db=30.0, delay=333, seed=3,
+                                 sfo_ppm=100.0)
+    cap, txd, _ = simulator.simulate_capture(cfg, spec, device="cpu")
+    r_cpu, d_cpu, _ = sfo.decode_with_sfo(cap, cfg, device="cpu")
+    r, d, iq = sfo.decode_with_sfo(cap, cfg, device=dev)
+    assert {d.device.type, iq.device.type, r.rx_data.device.type} == {dev.type}
+    assert abs(float(d) - float(d_cpu)) < 1e-6
+    assert torch.equal(r.rx_data.cpu(), r_cpu.rx_data)
+    assert abs(float(d) * 1e6 - 100.0) < 15.0
+
+
+def test_streamed_sfo_on_card_matches_cpu():
+    """Three bursts at 100 ppm streamed with sfo_correct on the card and
+    on the CPU: the same sfo_hat within 1e-6 and the same decisions."""
+    dev = require_cuda()
+    cfg = tiny_config(bit_exact=False, pid_max=64,
+                      modulation=Modulation.QAM16, track_channel=True,
+                      sync_fallback=True)
+    spec = simulator.ChannelSpec(snr_db=35.0, delay=0, trailing=0, seed=3,
+                                 sfo_ppm=100.0)
+    from rub_mimo_tpu_torch.ofdm import framegen
+
+    gap = cfg.window_len + 3 * cfg.symbol_len
+    parts = [torch.zeros((2, 300), dtype=torch.complex64)]
+    for s in (1, 2, 3):
+        t = framegen.transmit_frame(
+            cfg, framegen.generate_payload_symbols(cfg, seed=s), device="cpu")
+        parts += [t, torch.zeros((2, max(64, gap - t.shape[-1])),
+                                 dtype=torch.complex64)]
+    parts.append(torch.zeros((2, 500), dtype=torch.complex64))
+    h = simulator.draw_channel(spec, 2, 2)
+    cap = simulator.apply_channel(torch.cat(parts, dim=-1), h, spec, cfg)
+    decs = {}
+    for where in ("cpu", dev):
+        d = streaming.StreamingDecoder(cfg, device=where, chunk_size=512,
+                                       sfo_correct=True)
+        C = 512
+        x = torch.nn.functional.pad(cap, (0, -(-cap.shape[-1] // C) * C
+                                          - cap.shape[-1]))
+        for i in range(x.shape[-1] // C):
+            d.push(x[:, i * C:(i + 1) * C])
+        d.finalize()
+        decs[str(where)] = d
+    cpu, card = decs["cpu"], decs[str(dev)]
+    assert len(card.bursts) == len(cpu.bursts) == 3
+    assert abs(card.sfo_hat - cpu.sfo_hat) < 1e-6
+    for (si, _, a), (sj, _, b) in zip(card.burst_results(),
+                                      cpu.burst_results()):
+        assert si == sj and torch.equal(a.cpu(), b)

@@ -201,6 +201,9 @@ def test_decode_runs_with_jax_unimportable():
         "from rub_mimo_tpu_torch import tiny_config\n"
         "from rub_mimo_tpu_torch.io import simulator\n"
         "from rub_mimo_tpu_torch.pipeline import report, rx\n"
+        "from rub_mimo_tpu_torch.ofdm import fec\n"
+        "from rub_mimo_tpu_torch.estimate import sfo\n"
+        "from rub_mimo_tpu_torch.utils import resample\n"
         "cfg = tiny_config(bit_exact=False)\n"
         "spec = simulator.ChannelSpec(snr_db=35.0, delay=300, seed=3)\n"
         "cap, tx, _ = simulator.simulate_capture(cfg, spec, device='cpu')\n"

@@ -39,14 +39,14 @@ PMID = pcfg(MID)
 
 
 def jax_capture(cfg: ModemConfig, *, snr_db=35.0, delay=300, seed=3,
-                trailing=2048, **spec_kw):
+                trailing=2048, tx_data=None, **spec_kw):
     """(capture [S, T] complex64 numpy, tx_data numpy) from the JAX
-    package's TX + channel simulator."""
+    package's TX + channel simulator (of ``tx_data`` when given)."""
     from rub_mimo_tpu.io import simulator
 
     spec = simulator.ChannelSpec(snr_db=snr_db, delay=delay, seed=seed,
                                  trailing=trailing, **spec_kw)
-    cap, tx_data, _ = simulator.simulate_capture(cfg, spec)
+    cap, tx_data, _ = simulator.simulate_capture(cfg, spec, tx_data=tx_data)
     return np.array(cap), np.asarray(tx_data)
 
 
