@@ -7,8 +7,8 @@ NVIDIA GPU.
 Builds the port's CUDA kernels from the sources in this checkout (K1 the
 strip-fused payload tail, K2 the fused payload tail, K3 equalize +
 demap, K4 the hard demap, K5 the one-pass sync, K6 the S&C metric, K7
-the CP strip, K8 the halo exchange, and the Viterbi decoder; one nvcc
-per source, all at once)
+the CP strip, K8 the halo exchange, the Viterbi decoder and the soft
+LLRs; one nvcc per source, all at once)
 and holds each against its plain PyTorch version: K1 and K2 on seeded
 random payloads (the operating point, one frame per block, M = 64 and
 4096, an odd CP with an unaligned plane, 3 and 4 streams, 2 to 64
@@ -77,14 +77,21 @@ device's busy time and idle share over the stream.
 It runs the coded chain (ofdm.fec) at the operating point: a payload of
 encode_payload(seed=42) at rates 1/2, 2/3 and 3/4 through the port's TX
 and channel, the default planes decode (K1) and decode_payload (the
-Viterbi kernel, csrc/viterbi.cu, which has no TPU counterpart: it
-replaces the JAX package's lax.scan pair), BER 0 on both lanes; the
-back end's stages (LLRs, deinterleave and depuncture, Viterbi, whole)
-timed; encode_data / decode_data of a full payload of seeded bytes (CRC
-and bytes exact); decode_payload_ml on the ML QPSK config (BER 0).  The
-Viterbi kernel is held bit for bit against viterbi_plain on the
-operating point's 2,500 windows, a 16,390-step codeword, seeded rows
-with exact ties and +-1e4 pads, and all-zero rows.  decode_with_sfo runs
+soft-LLR kernel, csrc/soft_llr.cu, and the Viterbi kernel,
+csrc/viterbi.cu, neither with a TPU counterpart: they replace the JAX
+package's XLA ops and lax.scan pair; one launch each a decode), BER 0 on
+both lanes; the back end's stages (LLRs, deinterleave and depuncture,
+Viterbi, whole) timed; encode_data / decode_data of a full payload of
+seeded bytes (CRC and bytes exact); decode_payload_ml on the ML QPSK
+config (BER 0).  The soft-LLR kernel is held value for value against
+soft_llr_plain on the operating point's rx_sig and on seeded symbols of
+every modulation (an odd count and one symbol, NaN, +-Inf and 1e30
+rows), noise_var a number and a device tensor.  The Viterbi kernel is
+held bit for bit against viterbi_plain on the operating point's 2,500
+windows, a 16,390-step codeword, seeded rows with exact ties and +-1e4
+pads, all-zero rows, and row counts that leave a warp's lane groups part
+empty (1, 2, 3, 5, 37 rows; 1, 31, 33 steps); it is timed there, beside
+the previous kernel's time quoted (VITERBI_BEFORE_QUOTED).  decode_with_sfo runs
 on the full-geometry SFO case (pid_max=64) at 20 and 100 ppm
 (|ppm_hat - ppm| < 0.1 ppm + 2, SER < 0.005) and at the operating point
 at 20 ppm (printed); the streaming decoder's live SFO correction on
@@ -180,6 +187,9 @@ KERNELS = {
     # no TPU kernel: the JAX package's Viterbi is a lax.scan pair
     "viterbi": ("viterbi", "viterbi", "viterbi",
                 "rub_mimo_tpu/ofdm/fec.py:141"),
+    # no TPU kernel: the JAX package's soft LLRs are XLA ops
+    "soft_llr": ("soft_llr", "soft_llr", "soft_llr",
+                 "rub_mimo_tpu/ofdm/constellation.py:222"),
 }
 SHARDED_G_RTOL, SHARDED_G_ATOL = 2e-4, 2e-5  # tests/test_parallel.py
 # K6's device ms before its redesign as a persistent span scan, quoted in
@@ -192,6 +202,23 @@ K6_BEFORE_QUOTED = {
     "card": "NVIDIA H100 80GB HBM3, 700.00 W",
     "ms": {"operating_point": 0.053339, "sharded_stage_a": 0.053856,
            "one_card_share": 0.0139625}}
+# the Viterbi kernel's device ms before its redesign in lane groups, on the
+# operating point's 2,500 windows of 4,352 steps, quoted in the
+# viterbi_vs_plain line and not measured by this script (torch.profiler
+# busy time per call, median over 10 calls, by scripts/time_viterbi.py
+# --root on a checkout of the commit before it, in the same run as the
+# redesigned kernel)
+VITERBI_BEFORE_QUOTED = {
+    "measured_by_this_run": False,
+    "source": "scripts/time_viterbi.py --root <the commit before the "
+              "Viterbi's redesign>",
+    "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+    # two runs of the parent in one call, beside two of the redesigned
+    # kernel (0.577199, 0.577421 ms on seeded rows of the same shape)
+    "ms": {"operating_point_rows": [1.069554, 1.0594]}}
+# lanes a row of the Viterbi kernel, and the widths measured on the
+# operating point's rows before 8 was kept (their times: PERF.md)
+VITERBI_LANES, VITERBI_LANES_TRIED = 8, (8, 16, 32)
 PAYLOAD_KERNELS = ("payload_fused_strip", "payload_fused", "eq_demap",
                    "demap", "cp_strip")
 # kernel -> the names of its device kernels (a graph's launches are
@@ -206,6 +233,7 @@ DEVICE_KERNELS = {
     "cp_strip": ("cp_strip_kernel",),
     "ring_shift_right": ("ring_shift_right_kernel",),
     "viterbi": ("viterbi_kernel",),
+    "soft_llr": ("soft_llr_kernel",),
 }
 
 
@@ -1414,9 +1442,12 @@ def ber_by_lane(bits: torch.Tensor, msg: np.ndarray) -> list:
 
 def stage_busy(fn, iters: int = CODED_ITERS) -> dict:
     """CUDA-event median of fn (ms), the device's busy ms per call from
-    torch.profiler and the idle share they give."""
+    torch.profiler (the median over ``iters`` profiled calls where the
+    session's events split into the calls, else their mean) and the idle
+    share they give."""
     t = cuda_ms(fn, iters=iters, warmup=2)
-    busy = device_busy(fn, n=3)["busy_ms"]
+    prof = device_busy(fn, n=iters)
+    busy = prof["busy_ms_median"] or prof["busy_ms"]
     return {"event_ms": t["median_ms"], "wall_ms": t["wall_median_ms"],
             "busy_ms": busy,
             "idle_share": None if busy is None else 1.0 - busy
@@ -1463,7 +1494,7 @@ def coded_phase(dev, card, cfg) -> dict:
               "launches": {k: v for k, v in counts.items() if v},
               "encode_payload_host_s": encode_s})
         require(counts["payload_fused_strip"] == 1
-                and counts["viterbi"] == 1,
+                and counts["soft_llr"] == 1 and counts["viterbi"] == 1,
                 f"coded {rate}: launches {counts}")
         require(all(b == 0.0 for b in ber), f"coded {rate}: BER {ber}")
         if rate == "1/2":
@@ -1513,6 +1544,8 @@ def coded_phase(dev, card, cfg) -> dict:
           "crc_ok": bool(ok), "exact": got == data,
           "launches": {k: v for k, v in counts.items() if v}})
     require(ok and got == data, "decode_data: CRC or bytes differ")
+    require(counts["soft_llr"] == 1 and counts["viterbi"] == 1,
+            f"decode_data launches {counts}")
     del planes
 
     # joint soft-output ML on the ML QPSK config
@@ -1531,7 +1564,7 @@ def coded_phase(dev, card, cfg) -> dict:
     require(counts["viterbi"] == 1 and counts["demap"] >= 1,
             f"coded ML launches {counts}")
     require(all(b == 0.0 for b in ber), f"coded ML: BER {ber}")
-    return {"counts": main_counts,
+    return {"counts": main_counts, "sig": sig,
             "rows": fec.viterbi_rows(dep, window=4096)}
 
 
@@ -1560,10 +1593,15 @@ def viterbi_check(dev, card, rows) -> dict:
         "all_zero": (torch.zeros((4, 500, 2), device=dev),
                      torch.arange(4, device=dev) % 2 == 0),
     }
+    # row counts that leave a warp's groups part empty, and short rows
+    for R, T in ((1, 1), (2, 31), (3, 33), (5, 700), (37, 31), (1, 33),
+                 (2, 4352)):
+        cases[f"rows_{R}_steps_{T}"] = (seeded(R * 7 + T, R, T),
+                                        torch.arange(R, device=dev) % 2 == 0)
     out = {}
     for name, (p, pin) in cases.items():
-        got = kv.viterbi(p, pin)
         want = kv.viterbi_plain(p, pin)
+        got = kv.viterbi(p, pin)
         torch.cuda.synchronize()
         diff = int((got != want).sum())
         out[name] = {"rows": p.shape[0], "steps": p.shape[1],
@@ -1577,7 +1615,9 @@ def viterbi_check(dev, card, rows) -> dict:
     t_16k = cuda_ms(lambda: kv.viterbi(*cases["codeword_16390"]), iters=10)
     b = bound(nbytes(p, pin) + R * T * 4, VITERBI_OPS * 64.0 * R * T)
     emit({"phase": "viterbi_vs_plain", "card": card, "cases": out,
+          "lanes": VITERBI_LANES, "lanes_tried": VITERBI_LANES_TRIED,
           "kernel_busy_ms": busy, "kernel_event_ms": t_k["median_ms"],
+          "before_redesign_quoted": VITERBI_BEFORE_QUOTED,
           "plain_ms": t_plain["median_ms"],
           "codeword_16390_event_ms": t_16k["median_ms"], **b})
     return {"max_abs_err": max(float(v["bits_differing"] > 0)
@@ -1586,6 +1626,84 @@ def viterbi_check(dev, card, rows) -> dict:
             "timer": "profiler" if busy is not None else "cuda_events",
             "plain_ms": t_plain["median_ms"], "bound": b,
             "codeword_16390_ms": t_16k["median_ms"], "cases": out}
+
+
+def llr_bound(n_sym: int, bits: int) -> dict:
+    """The max-log LLRs' two bounds: the symbols read and the LLRs written
+    once over the memory rate, and the float32 operations the function
+    needs over the peak rate.  A point costs |y - c|^2 (two subtracts, two
+    multiplies, an add) and one minimum a bit; a symbol then 2 bits
+    scalings and bits subtracts.  The kernel's hypotf and its square are
+    not counted: they are there only to round as the plain version does."""
+    n_bytes = n_sym * (8 + 4 * bits)
+    flops = float(n_sym) * ((5 + bits) * (1 << bits) + 3 * bits)
+    b = bound(n_bytes, flops)
+    return {**b, "bytes_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations_bound_ms": flops / FP32_FLOPS * 1e3}
+
+
+def same_llrs(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Values differing between two LLR tensors (NaN equal to NaN), and
+    the largest |difference| where both are finite."""
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    differ = int((~((a == b) | both_nan)).sum())
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    err = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return {"differing": differ, "max_abs_err": err,
+            "nan": int(torch.isnan(b).sum())}
+
+
+def soft_llr_check(dev, card, sig, cfg) -> dict:
+    """The soft-LLR kernel against soft_llr_plain, value for value (NaN
+    where it is NaN): the operating point's rx_sig (ARB32OPT); seeded
+    symbols for BPSK, QPSK, 16-QAM, 64-QAM and QAM256 at an odd count and
+    at one symbol, each with NaN, +-Inf and 1e30 rows; noise_var as a
+    number and as a device tensor.  Times the kernel and the plain
+    version on the rx_sig.  Returns its row of the kernels line."""
+    from rub_mimo_tpu_torch import Modulation
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+    from rub_mimo_tpu_torch.ofdm import constellation
+
+    tab = constellation.table(cfg.modulation)
+    cases = {"operating_point": (sig, tab)}
+    for mod in (Modulation.BPSK, Modulation.QPSK, Modulation.QAM16,
+                Modulation.ARB32OPT, Modulation.QAM64, Modulation.QAM256):
+        t = constellation.table(mod)
+        for n in (100_001, 1):
+            rng = np.random.default_rng(n + len(t))
+            y = ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                 * 0.8).astype(np.complex64)
+            if n > 1:
+                y[:8] = [np.nan, np.inf, -np.inf, 1e30, -1e30,
+                         complex(np.inf, np.nan), complex(0.0, -np.inf),
+                         t[-1]]
+            cases[f"{mod.name}_{n}"] = (torch.as_tensor(y, device=dev), t)
+    out = {}
+    for name, (y, t) in cases.items():
+        for nv_name, nv in (("0.37", 0.37), ("1.0", 1.0),
+                            ("tensor_0.37", torch.tensor(0.37, device=dev))):
+            got = ks.soft_llr(y, t, nv)
+            want = ks.soft_llr_plain(y, t, nv)
+            torch.cuda.synchronize()
+            r = same_llrs(got, want)
+            out[f"{name}/{nv_name}"] = {"symbols": y.numel(),
+                                        "points": len(t), **r}
+            require(r["differing"] == 0,
+                    f"soft_llr {name} noise_var {nv_name}: {r}")
+    bits = int(len(tab)).bit_length() - 1
+    busy = device_busy(lambda: ks.soft_llr(sig, tab, 1.0), n=10)["busy_ms"]
+    t_k = cuda_ms(lambda: ks.soft_llr(sig, tab, 1.0), iters=10)
+    t_plain = cuda_ms(lambda: ks.soft_llr_plain(sig, tab, 1.0), iters=5,
+                      warmup=1)
+    b = llr_bound(sig.numel(), bits)
+    emit({"phase": "soft_llr_vs_plain", "card": card, "cases": out,
+          "kernel_busy_ms": busy, "kernel_event_ms": t_k["median_ms"],
+          "plain_ms": t_plain["median_ms"], **b})
+    return {"max_abs_err": max(v["max_abs_err"] for v in out.values()),
+            "ms": busy if busy is not None else t_k["median_ms"],
+            "timer": "profiler" if busy is not None else "cuda_events",
+            "event_ms": t_k["median_ms"], "plain_ms": t_plain["median_ms"],
+            "bound": b, "cases": out}
 
 
 def sfo_phase(dev, card) -> dict:
@@ -1737,6 +1855,7 @@ def main() -> None:
     from rub_mimo_tpu_torch.kernels import payload_fused as pf
     from rub_mimo_tpu_torch.kernels import sc_metric as k6
     from rub_mimo_tpu_torch.kernels import sc_sync as k5
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
     from rub_mimo_tpu_torch.kernels import viterbi as kv
     from rub_mimo_tpu_torch.models import presets
     from rub_mimo_tpu_torch.parallel import mesh as pmesh
@@ -1760,6 +1879,7 @@ def main() -> None:
     k6._kernel()
     k8._lib()
     kv._kernel_fn()
+    ks._kernel_fn()
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2665,10 +2785,11 @@ def main() -> None:
                                torch.complex(re_c, im_c), tx_c, rc, p_re,
                                p_im)
 
-    # ---- phase 13: the coded chain, the Viterbi kernel, SFO ----
+    # ---- phase 13: the coded chain, the LLR and Viterbi kernels, SFO ----
     coded = coded_phase(dev, card, cfg)
+    llr = soft_llr_check(dev, card, coded["sig"], cfg)
     vit = viterbi_check(dev, card, coded["rows"])
-    del coded["rows"]
+    del coded["rows"], coded["sig"]
     sfo_phase(dev, card)
     streaming_sfo_phase(dev, card)
 
@@ -2702,6 +2823,7 @@ def main() -> None:
         "ring_shift_right": bound(
             nbytes(op_stack[:-1], op_stack), 0.0),
         "viterbi": vit["bound"],
+        "soft_llr": llr["bound"],
     }
     launched = {
         "payload_fused_strip": launches,
@@ -2713,6 +2835,7 @@ def main() -> None:
         "cp_strip": impl_counts["fused"]["cp_strip"],
         "ring_shift_right": shard_counts["pallas_dma_4x1"]["ring_shift_right"],
         "viterbi": coded["counts"]["viterbi"],
+        "soft_llr": coded["counts"]["soft_llr"],
     }
     errors = {
         "payload_fused_strip": main_cmp["max_abs_err"],
@@ -2724,6 +2847,7 @@ def main() -> None:
         "cp_strip": cases["cp_strip"]["max_abs_err"],
         "ring_shift_right": k8_err,
         "viterbi": vit["max_abs_err"],
+        "soft_llr": llr["max_abs_err"],
     }
     no_fire_bound = bound(nbytes(no_fire), 18.0 * no_fire.numel())
     # K4's integer decisions: its mismatches and their largest top-2 margin
@@ -2785,8 +2909,18 @@ def main() -> None:
                  "timer": vit["timer"],
                  "launches_per_coded_decode": coded["counts"]["viterbi"],
                  "codeword_16390_event_ms": vit["codeword_16390_ms"],
-                 "cases": vit["cases"]}}
+                 "cases": vit["cases"]},
+             "soft_llr": {
+                 "tpu_kernel": None,
+                 "note": "replaces the JAX package's XLA ops",
+                 "timer": llr["timer"],
+                 "event_ms": llr["event_ms"],
+                 "launches_per_coded_decode": coded["counts"]["soft_llr"],
+                 "bytes_bound_ms": llr["bound"]["bytes_bound_ms"],
+                 "operations_bound_ms": llr["bound"]["operations_bound_ms"],
+                 "cases": llr["cases"]}}
     dev_ms["viterbi"] = (vit["ms"], vit["plain_ms"], None)
+    dev_ms["soft_llr"] = (llr["ms"], llr["plain_ms"], None)
     # launches of each kernel in one replay of each served path's graph
     for name in KERNELS:
         per = {path: v["launches_per_replay"][name]

@@ -27,6 +27,7 @@ import torch
 from rub_mimo_tpu_torch.config import CommMode, Detector, ModemConfig
 from rub_mimo_tpu_torch.estimate import ls
 from rub_mimo_tpu_torch.ofdm import constellation, sctype
+from rub_mimo_tpu_torch.utils.device import on_device
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
 from rub_mimo_tpu_torch.utils.resample import resample_bandlimited
 
@@ -152,7 +153,7 @@ def decode_with_sfo(iq, cfg: ModemConfig, *, device, iters: int = 2,
     dec_fit = rx_mod.make_decoder(cfg_fit, device=device)
     dec_track = rx_mod.make_decoder(cfg_track, device=device)
     iq = torch.as_tensor(iq, dtype=torch.complex64,
-                         device=rx_mod._on_device(device))
+                         device=on_device(device))
 
     fit_result = dec_fit(iq)
     region = rx_mod._extract_region(iq, fit_result.sync_index, cfg_fit)

@@ -5,7 +5,7 @@ The JAX package runs the recursion as two lax.scans
 (rub_mimo_tpu/ofdm/fec.py:141, ``_viterbi_pairs``), one over the steps
 and one back over the stored decisions.  Eagerly that is a Python
 iteration of several launches per step, so on CUDA tensors ``viterbi``
-launches one hand-written kernel, csrc/viterbi.cu (one warp per row, see
+launches one hand-written kernel, csrc/viterbi.cu (8 lanes a row, see
 the source note), for the whole batch of rows.  On CPU tensors it runs
 ``viterbi_plain``, the same recursion as a Python loop over the steps on
 batched tensors.  The two give the same bits: every float operation of
@@ -134,7 +134,9 @@ def viterbi(pairs: torch.Tensor, pinned: torch.Tensor) -> torch.Tensor:
     if R * T >= 1 << 62 or T >= 1 << 31 or R >= 1 << 31:
         raise ValueError(f"viterbi: {R} x {T} steps too many for the kernel")
     flags = pinned.to(torch.uint8).contiguous()
-    dec = torch.empty((R, T), dtype=torch.int64, device=pairs.device)
+    # the kernel's decision words: 4 ceil(T / 4) 64-bit words a row
+    dec = torch.empty((R, 4 * (-(-T // 4))), dtype=torch.int64,
+                      device=pairs.device)
     bits = torch.empty((R, T), dtype=torch.int32, device=pairs.device)
     fn = _kernel_fn()
     with torch.cuda.device(pairs.device):

@@ -21,6 +21,9 @@ import numpy as np
 import torch
 
 from rub_mimo_tpu_torch.config import Modulation
+from rub_mimo_tpu_torch.kernels import soft_llr
+# soft_llr_plain's pass length; _f32 rounds a number as the JAX package does
+from rub_mimo_tpu_torch.kernels.soft_llr import LLR_CHUNK, _f32  # noqa: F401
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 _SQRT2 = math.sqrt(2.0)
@@ -180,39 +183,14 @@ def demodulate(y: torch.Tensor, modulation: Modulation) -> torch.Tensor:
     return hard_demap(y, table(modulation))
 
 
-LLR_CHUNK = 1 << 19  # symbols a pass of soft_demodulate_llr
-
-
-def _f32(x):
-    """A Python number rounded to float32, as the JAX package takes it; a
-    tensor as it is."""
-    return x if isinstance(x, torch.Tensor) else float(np.float32(x))
-
-
 def soft_demodulate_llr(y: torch.Tensor, modulation: Modulation,
                         noise_var: float | torch.Tensor = 1.0
                         ) -> torch.Tensor:
-    """Max-log-MAP bit LLRs [..., bits_per_symbol] float32 of the symbols
-    y (positive -> bit 0, bits MSB-first): per bit, the best metric
-    -|y - c|^2 / noise_var over the points whose bit is 0 less the best
-    over those whose bit is 1, with the JAX package's |y - c|^2.
-
-    The symbols go through in passes of LLR_CHUNK (the function is
-    elementwise per symbol, so this is exact): the [N, points] distances
-    of the operating point's 4.1 M symbols at once would take 524 MB.  A
-    bit splits the point index as [2^b, 2, 2^(bits-1-b)], so each bit's
-    two maxima are reductions over a view."""
-    t = table_on(modulation, y.device)
-    bits = modulation.bits_per_symbol
-    yf = y.reshape(-1)
-    out = torch.empty((yf.shape[0], bits), dtype=torch.float32,
-                      device=y.device)
-    for c0 in range(0, yf.shape[0], LLR_CHUNK):
-        metric = (yf[c0:c0 + LLR_CHUNK, None] - t[None, :]).abs() ** 2
-        metric = metric.neg_().div_(_f32(noise_var))
-        n = metric.shape[0]
-        for b in range(bits):
-            v = metric.view(n, 1 << b, 2, 1 << (bits - 1 - b))
-            out[c0:c0 + n, b] = (v[:, :, 0].amax(dim=(1, 2))
-                                 - v[:, :, 1].amax(dim=(1, 2)))
-    return out.reshape(*y.shape, bits)
+    """Max-log-MAP bit LLRs [..., bits_per_symbol] float32 of the
+    complex64 symbols y (positive -> bit 0, bits MSB-first): per bit, the
+    best metric -|y - c|^2 / noise_var over the points whose bit is 0
+    less the best over those whose bit is 1, with the JAX package's
+    |y - c|^2.  On a CUDA tensor one launch of the soft-LLR kernel
+    (kernels.soft_llr), else its plain version in passes of LLR_CHUNK
+    symbols."""
+    return soft_llr.soft_llr(y, table(modulation), noise_var)

@@ -68,6 +68,7 @@ from rub_mimo_tpu_torch.kernels import eq_demap as eq_demap_mod
 from rub_mimo_tpu_torch.kernels import payload_fused
 from rub_mimo_tpu_torch.ofdm import constellation, sctype
 from rub_mimo_tpu_torch.sync import matched_filter, schmidl_cox, xcorr_sync
+from rub_mimo_tpu_torch.utils.device import on_device
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 PAYLOAD_IMPLS = ("auto", "fused_strip", "fused", "eqdemap", "xla")
@@ -420,20 +421,6 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
     )
 
 
-def _on_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA request without CUDA raises,
-    and on CUDA float32 matrix products are kept in full float32 (see
-    make_decoder)."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is not "
-                               "available")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return device
-
-
 def make_decoder(cfg: ModemConfig, *, device, input_format: str = "complex",
                  keep_rx_sig: bool = True, keep_debug: bool = False,
                  sync_impl: str = "coarse", payload_impl: str = "auto"):
@@ -448,7 +435,7 @@ def make_decoder(cfg: ModemConfig, *, device, input_format: str = "complex",
     (TF32 off for matmul and cuDNN): TF32 would round the weights and the
     channel-inversion products to ~3 digits."""
     check_supported(cfg, payload_impl)
-    device = _on_device(device)
+    device = on_device(device)
     if sync_impl not in schmidl_cox.IMPLS:
         raise ValueError(f"unknown sync_impl {sync_impl!r}")
     kw = dict(keep_rx_sig=keep_rx_sig, keep_debug=keep_debug,
@@ -548,7 +535,7 @@ def make_serving_decoder(cfg: ModemConfig, *, device,
             "the host (the coarse scan's early exit; a sync_quorum turns "
             "'pallas' into 'coarse'), so it cannot be served from a CUDA "
             "graph: use sync_impl='pallas' or 'xla'")
-    device = _on_device(device)
+    device = on_device(device)
     planes = input_format == "planes"
     dtype = torch.float32 if planes else torch.complex64
 

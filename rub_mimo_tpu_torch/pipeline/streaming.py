@@ -65,6 +65,7 @@ from rub_mimo_tpu_torch.ofdm import constellation
 from rub_mimo_tpu_torch.pipeline import rx
 from rub_mimo_tpu_torch.sync import matched_filter, schmidl_cox, xcorr_sync
 from rub_mimo_tpu_torch.utils import resample
+from rub_mimo_tpu_torch.utils.device import on_device
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
 from rub_mimo_tpu_torch.utils.movsum import moving_sum
 
@@ -127,7 +128,7 @@ class StreamingDecoder:
                 "refits are both the live equalizer under drift and the "
                 "SFO observable)")
         self.cfg = cfg
-        self.device = rx._on_device(device)
+        self.device = on_device(device)
         self.C = int(chunk_size)
         S, M, sym = cfg.num_streams, cfg.M, cfg.symbol_len
         self.S = S

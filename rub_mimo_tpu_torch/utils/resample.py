@@ -24,6 +24,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from rub_mimo_tpu_torch.utils.device import on_device
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 
@@ -122,16 +123,18 @@ class StreamingResampler:
     ``margin`` guard samples on each side absorbing the window's periodic
     extension.  ``origin`` is the global position where the resampler
     takes over a stream already consumed raw (input and output positions
-    coincide there).  The ring lives on ``device``."""
+    coincide there).  The ring lives on ``device``, which has no default,
+    as at every entry point of the port (a CUDA request without CUDA
+    raises)."""
 
     def __init__(self, n_streams: int, chunk_size: int, factor: float = 1.0,
-                 margin: int = 256, origin: int = 0, *, device="cpu"):
+                 margin: int = 256, origin: int = 0, *, device):
         self.S = int(n_streams)
         self.C = int(chunk_size)
         self.margin = int(margin)
         self.factor = float(factor)
         self.origin = int(origin)
-        self.device = torch.device(device)
+        self.device = on_device(device)
         self.L = self.C + 2 * self.margin + 16
         self.R = 3 * self.C + 8 * self.margin + 64
         self._ring = torch.zeros((self.S, self.R), dtype=torch.complex64,

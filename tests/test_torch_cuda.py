@@ -1368,10 +1368,13 @@ def viterbi_pairs(seed: int, rows: int, T: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("rows,T", [(1, 1), (3, 31), (5, 33), (37, 700),
-                                    (9, 4352)])
+                                    (9, 4352), (2, 100), (7, 64),
+                                    (2500, 4352)])
 def test_viterbi_kernel_matches_plain(rows, T):
     """Bit for bit with viterbi_plain in both modes (pinned rows and
-    uniform-prior windows mixed in one launch), one launch counted."""
+    uniform-prior windows mixed in one launch), one launch counted; row
+    counts that leave a warp's lane groups part empty, and the operating
+    point's 2,500 windows of 4,352 steps."""
     dev = require_cuda()
     from rub_mimo_tpu_torch.kernels import viterbi as kv
 
@@ -1420,13 +1423,73 @@ def test_coded_decode_on_card_matches_cpu(rate):
                                            device="cpu")
     cpu = fec.decode_payload(rx.make_decoder(cfg, device="cpu")(cap).rx_sig,
                              cfg, rate=rate)
-    before = kv.viterbi.launches
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+
+    before, llr_before = kv.viterbi.launches, ks.soft_llr.launches
     card = fec.decode_payload(rx.make_decoder(cfg, device=dev)(cap).rx_sig,
                               cfg, rate=rate)
     assert kv.viterbi.launches == before + 1
+    assert ks.soft_llr.launches == llr_before + 1
     assert card.device.type == "cuda"
     assert torch.equal(card.cpu(), cpu)
     assert np.array_equal(n(card), msg)
+
+
+def llr_symbols(mod: Modulation, n: int) -> np.ndarray:
+    """Seeded symbols around the table, with NaN, +-Inf, 1e30 and
+    on-point rows where there is room."""
+    t = constellation.table(mod)
+    rng = np.random.default_rng(n + len(t))
+    y = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.8
+         ).astype(np.complex64)
+    if n >= 8:
+        y[:8] = [np.nan, np.inf, -np.inf, 1e30, complex(np.inf, np.nan),
+                 complex(0.0, -np.inf), -1e30, t[-1]]
+    return y
+
+
+def same_llrs(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.parametrize("n", [1, 4097, 100_003])
+@pytest.mark.parametrize("mod", ALL_MODS)
+def test_soft_llr_kernel_matches_plain(mod, n):
+    """The soft-LLR kernel equals soft_llr_plain on the card value for
+    value (NaN where it is NaN), noise_var a number (rounded to float32),
+    a device tensor and a CPU scalar tensor; one launch a call."""
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+
+    tab = constellation.table(mod)
+    y = torch.as_tensor(llr_symbols(mod, n), device=dev)
+    for nv in (1.0, 0.37, 1e-6, torch.tensor(0.37, device=dev),
+               torch.tensor(0.37), 0.0, torch.tensor(-2.0, device=dev)):
+        before = ks.soft_llr.launches
+        got = ks.soft_llr(y, tab, nv)
+        torch.cuda.synchronize()
+        assert ks.soft_llr.launches == before + 1
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert same_llrs(got, ks.soft_llr_plain(y, tab, nv)), nv
+    shaped = y[: n - n % 2].reshape(2, -1) if n > 1 else y.reshape(1, 1)
+    assert same_llrs(constellation.soft_demodulate_llr(shaped, mod, 0.5),
+                     ks.soft_llr_plain(shaped, tab, 0.5))
+
+
+def test_soft_llr_kernel_rejects_what_it_cannot_take():
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+
+    tab = constellation.table(Modulation.QPSK)
+    y = torch.zeros(16, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        ks.soft_llr(y.to(torch.complex128), tab)
+    with pytest.raises(ValueError):
+        ks.soft_llr(y, np.zeros(512, np.complex64))
+    with pytest.raises(ValueError):
+        ks.soft_llr(y, tab, torch.ones(2, device=dev))
+    assert ks.soft_llr(y[:0], tab).shape == (0, 2)
 
 
 def test_decode_with_sfo_on_card_matches_cpu():

@@ -26,6 +26,7 @@ from rub_mimo_tpu.ofdm import fec as jfec
 from rub_mimo_tpu.pipeline import rx as jrx
 from rub_mimo_tpu_torch.config import Modulation as PModulation
 from rub_mimo_tpu_torch.detect import ml as pml
+from rub_mimo_tpu_torch.kernels import soft_llr as ksoft_llr
 from rub_mimo_tpu_torch.kernels import viterbi as kviterbi
 from rub_mimo_tpu_torch.ofdm import constellation as pconst
 from rub_mimo_tpu_torch.ofdm import fec
@@ -221,7 +222,7 @@ def test_soft_demodulate_llr_matches_jax(mod, monkeypatch):
         assert got.dtype == torch.float32 and got.shape == want.shape
         np.testing.assert_allclose(oracle.n(got), want, rtol=1e-5,
                                    atol=1e-5 * np.abs(want).max())
-        monkeypatch.setattr(pconst, "LLR_CHUNK", 37)
+        monkeypatch.setattr(ksoft_llr, "LLR_CHUNK", 37)
         chunked = pconst.soft_demodulate_llr(
             torch.as_tensor(y), PModulation(mod), torch.tensor(nv))
         monkeypatch.undo()

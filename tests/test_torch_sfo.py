@@ -86,7 +86,8 @@ def test_streaming_resampler_matches_jax():
     x = np.stack([np.exp(2j * np.pi * (642 / T) * t),
                   0.5 * np.exp(-2j * np.pi * (2000 / T) * t)]
                  ).astype(np.complex64)
-    ours = resample.StreamingResampler(2, C, factor=1 - 100e-6, origin=2048)
+    ours = resample.StreamingResampler(2, C, factor=1 - 100e-6, origin=2048,
+                                       device="cpu")
     ref = jres.StreamingResampler(2, C, factor=1 - 100e-6, origin=2048)
     for g in range(1024, 2048, C):
         ours.preload_history(x[:, g:g + C], g)
@@ -110,6 +111,15 @@ def test_streaming_resampler_matches_jax():
     np.testing.assert_array_equal(oracle.n(out) == 0, ref_out == 0)
     with pytest.raises(ValueError):
         ours.push(torch.zeros((2, C + 1), dtype=torch.complex64))
+
+
+def test_streaming_resampler_has_no_default_device():
+    """The ring's device is a required keyword, as at every entry point
+    of the port: no silent CPU ring."""
+    with pytest.raises(TypeError):
+        resample.StreamingResampler(2, 512)
+    assert resample.StreamingResampler(2, 512, device="cpu").device == \
+        torch.device("cpu")
 
 
 @pytest.fixture(scope="module")
