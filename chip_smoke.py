@@ -98,6 +98,20 @@ at 20 ppm (printed); the streaming decoder's live SFO correction on
 tests/test_sfo_streaming.py's three-burst 100 ppm capture (its
 thresholds, and equal to the port's CPU stream) and on the same layout
 at full geometry, 20 ppm (printed).
+It drives the port's command line (apps/cli.py, through cli.main in this
+process) at its default geometry, the operating point: run (SER 0, K1
+once a decode, decisions equal to rx.decode's), the checkpoint it saves
+resumed from frames 0 and 500 (equal to the decode), transmit and then
+decode through files (the TX files through the simulated channel, SER
+0), listen on 127.0.0.1 fed by send as a process of its own (the native
+SocketReader, chunks of 4096, SER 0, samples/s a stream, K6/K1/K4
+launches), run with 1 dB / 5 degrees of IQ imbalance and a DC offset
+without and with --frontend-comp (SER, w against its closed form, the
+front end's device time against its bytes bound), the streamed front end
+(StreamingDecoder(frontend_comp=True), equal to decode_with_frontend, no
+host read in its payload phase), --precoded, --fec at rates 1/2 and 3/4,
+--send-file of 64 KB, and --profile with --trace-dir.  The native ingest
+library is built (g++) with the kernels.
 Every launch count is set to 0 just before a path runs and read just
 after.  It decodes the
 checked-in golden capture, times the decodes and the kernels with CUDA
@@ -1840,6 +1854,348 @@ def streaming_sfo_phase(dev, card) -> dict:
     return out
 
 
+# ---- the command line (apps/cli.py) at the CLI's default geometry ----
+# run's impairment for the front-end cases (tests/test_frontend.py:40-60's
+# amplitude and phase; the CLI's --dc-offset is real)
+CLI_IQ_IMBALANCE, CLI_DC_OFFSET = (1.0, 5.0), 0.05
+CLI_FILE_BYTES = 65536  # --send-file's seeded payload
+CLI_LISTEN_CHUNK = 4096  # listen's default --chunk
+CLI_FRONTEND_CHUNK = 65536  # the streamed front end's chunk
+CLI_FRONTEND_SER_MAX = 1e-4  # SER with --frontend-comp at 30 dB
+CLI_W_TOL = 0.04  # |w - nu / conj(mu)| (tests/test_frontend.py:60)
+
+
+def run_cli(argv: list) -> tuple:
+    """cli.main(argv) in this process: (exit code, what it printed)."""
+    import contextlib
+    import io
+
+    from rub_mimo_tpu_torch.apps import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    return rc, buf.getvalue()
+
+
+def printed(out: str, label: str) -> list:
+    """The numbers of the CLI's `label` lines ("symbol error rate",
+    "coded BER lane"), in percent."""
+    return [float(ln.split(":")[1].strip().rstrip("%"))
+            for ln in out.splitlines() if label in ln]
+
+
+def cli_spec(**kw):
+    """The ChannelSpec `cli run` builds from its default flags (30 dB,
+    delay 5000, seed 42) and kw."""
+    from rub_mimo_tpu_torch.io import simulator
+
+    return simulator.ChannelSpec(snr_db=30.0, delay=5000, seed=42, **kw)
+
+
+def cli_listen(card, cfg, directory: Path, T: int) -> dict:
+    """`listen` in this process (a thread, its launches counted) fed by
+    `send` as a process of its own over 127.0.0.1, from the capture
+    directory; SER 0, samples/s a stream from the send's start to the
+    decoder's result."""
+    import contextlib
+    import io
+    import socket
+    import threading
+
+    from rub_mimo_tpu_torch.apps import cli
+    from rub_mimo_tpu_torch.io import native
+
+    require(native.available(), "the native ingest library did not build")
+    with socket.socket() as s:  # a free port for the listener
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    buf, result = io.StringIO(), {}
+
+    def listen():
+        try:
+            result["rc"] = cli.main(["listen", "--port", str(port),
+                                     "--chunk", str(CLI_LISTEN_CHUNK),
+                                     "--tx-data", str(directory)])
+            torch.cuda.synchronize()
+        except BaseException as e:  # raised again below, in the caller
+            result["error"] = e
+        result["t_end"] = time.perf_counter()
+
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    with contextlib.redirect_stdout(buf):
+        th = threading.Thread(target=listen)
+        th.start()
+        deadline = time.time() + 120
+        while "listening on" not in buf.getvalue() and th.is_alive():
+            require(time.time() < deadline, "listen did not bind")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        send = subprocess.run(
+            [sys.executable, "-m", "rub_mimo_tpu_torch.apps.cli", "send",
+             str(directory), "--port", str(port)],
+            capture_output=True, text=True, timeout=300, cwd=REPO)
+        th.join(timeout=600)
+    require(not th.is_alive(), "listen did not end")
+    if "error" in result:
+        raise result["error"]
+    require(send.returncode == 0, f"send: {send.stdout}{send.stderr}")
+    out = buf.getvalue()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    sers = printed(out, "symbol error rate")
+    wall = result["t_end"] - t0
+    rec = {"phase": "cli", "case": "send_listen", "card": card,
+           "chunk": CLI_LISTEN_CHUNK, "native": native.available(),
+           "samples_per_stream": T, "rc": result["rc"],
+           "ser_percent": sers, "send_to_result_s": wall,
+           "samples_per_s_per_stream": T / wall,
+           "launches": {k: counts[k] for k in
+                        ("sc_metric", "payload_fused_strip", "demap")}}
+    emit(rec)
+    require(result["rc"] == 0 and "synced=True" in out, out)
+    require(sers == [0.0] * cfg.num_streams, f"listen SER {sers}")
+    require(all(v >= 1 for v in rec["launches"].values()),
+            f"listen launches {rec['launches']}")
+    return rec
+
+
+def cli_frontend(dev, card, cfg, tmp: Path) -> dict:
+    """run with the impairment, without and with --frontend-comp; the
+    moments against the closed form and their device time against the
+    bytes bound on the [2, T] capture; the streamed front end against the
+    offline decode_with_frontend, with no host read in its payload
+    phase."""
+    from rub_mimo_tpu_torch.estimate import frontend
+    from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.pipeline import checkpoint, streaming
+
+    amp, deg = CLI_IQ_IMBALANCE
+    imp = ["--iq-imbalance", f"{amp},{deg}", "--dc-offset", CLI_DC_OFFSET]
+    rc0, out0 = run_cli(["run", *imp])
+    ck = tmp / "frontend.npz"
+    (rc1, out1), counts = drive(lambda: run_cli(
+        ["run", *imp, "--frontend-comp", "--save-checkpoint", ck]))
+    ser0, ser1 = printed(out0, "symbol error rate"), printed(
+        out1, "symbol error rate")
+    spec = cli_spec(iq_amp_db=amp, iq_phase_deg=deg, dc_offset=CLI_DC_OFFSET)
+    cap, tx_data, _ = simulator.simulate_capture(cfg, spec, payload_seed=42,
+                                                 device=dev)
+    dc, w = frontend.estimate_frontend(cap)
+    g, phi = 10.0 ** (amp / 20.0), np.deg2rad(deg)
+    w_true = ((1.0 - g * np.exp(-1j * phi)) / 2.0
+              / np.conj((1.0 + g * np.exp(1j * phi)) / 2.0))
+    w_err = float(np.abs(w.cpu().numpy() - w_true).max())
+    r_off, _, _ = frontend.decode_with_frontend(cap, cfg, device=dev)
+    cli_same = bool(np.array_equal(checkpoint.load(ck).rx_data,
+                                   r_off.rx_data.cpu().numpy()))
+
+    def fe():
+        return frontend.compensate(cap, *frontend.estimate_frontend(cap))
+
+    busy = device_busy(fe, n=10)
+    # the moments read the capture once, the compensation reads it and
+    # writes its output: three passes of [S, T] complex64; ~20 float32
+    # operations a sample (the three moments, the conjugate product)
+    fe_bound = bound(3 * nbytes(cap), 20.0 * cap.numel())
+    fe_ms = busy["busy_ms_median"] or busy["busy_ms"]
+    emit({"phase": "cli", "case": "frontend_offline", "card": card,
+          "capture": list(cap.shape), "iq_imbalance_db_deg": [amp, deg],
+          "dc_offset": CLI_DC_OFFSET, "rc": [rc0, rc1],
+          "ser_percent_without": ser0, "ser_percent_with": ser1,
+          "w": [[v.real, v.imag] for v in w.cpu().numpy().tolist()],
+          "w_closed_form": [w_true.real, w_true.imag],
+          "w_max_abs_err": w_err,
+          "dc": [[v.real, v.imag] for v in dc.cpu().numpy().tolist()],
+          "cli_equals_decode_with_frontend": cli_same,
+          "frontend_device_ms": fe_ms,
+          "frontend_event_ms": cuda_ms(fe)["median_ms"],
+          "frontend_kernels_us": busy["kernels_us"],
+          "frontend_bound_ms": fe_bound["bound_ms"],
+          "frontend_bound_by": fe_bound["bound_by"],
+          "frontend_bound_share": (None if not fe_ms
+                                   else fe_bound["bound_ms"] / fe_ms),
+          "launches": {k: v for k, v in counts.items() if v}})
+    require(rc0 == 0 and rc1 == 0, "run with the impairment failed")
+    require(min(ser0) > max(ser1), f"SER without {ser0}, with {ser1}")
+    require(max(ser1) <= CLI_FRONTEND_SER_MAX * 100, f"SER with {ser1}")
+    require(w_err < CLI_W_TOL, f"w off the closed form by {w_err}")
+    require(cli_same, "run --frontend-comp differs from decode_with_frontend")
+
+    def stream():
+        dec = streaming.StreamingDecoder(cfg, device=dev,
+                                         chunk_size=CLI_FRONTEND_CHUNK,
+                                         frontend_comp=True)
+        feed(dec, cap)
+        return dec, dec.result()[1]
+
+    (dec, data), counts = drive(stream)
+    mism = int((data != r_off.rx_data).sum())
+    ser = stream_ser(data, tx_data, cfg)
+    strict = streaming.StreamingDecoder(cfg, device=dev,
+                                        chunk_size=CLI_FRONTEND_CHUNK,
+                                        frontend_comp=True)
+    pushes, secs = payload_span(strict, cap, strict=True)
+    emit({"phase": "cli", "case": "frontend_streamed", "card": card,
+          "chunk": CLI_FRONTEND_CHUNK, "warmup_chunks": 4,
+          "sync_index": dec.sync_index,
+          "offline_sync_index": int(r_off.sync_index),
+          "mismatches_vs_offline": mism, "ser": ser,
+          "host_reads": dec.host_reads,
+          "payload_pushes_without_host_read": pushes,
+          "payload_push_ms": secs / max(pushes, 1) * 1e3,
+          "launches": {k: v for k, v in counts.items() if v}})
+    require(mism == 0 and dec.sync_index == int(r_off.sync_index),
+            f"streamed front end: {mism} mismatches against offline")
+    require(pushes >= 1, "no payload push checked")
+    return {"ser_without": ser0, "ser_with": ser1, "w_err": w_err,
+            "device_ms": fe_ms, "bound_ms": fe_bound["bound_ms"]}
+
+
+def cli_phase(dev, card) -> dict:
+    """The port's command line (apps/cli.py) driven through cli.main at
+    its default geometry, the operating point (M=2048, CP=152, 2x2, 20
+    codes, 1000 ARB32OPT frames, ZF, 30 dB, delay 5000, seed 42): run
+    (SER 0, K1 once a decode, decisions equal rx.decode's), transmit then
+    decode through files (the TX files through the simulated channel,
+    SER 0), send / listen over 127.0.0.1 (listen's chunk 4096), the front
+    end offline and streamed, --precoded (SER 0 both rounds), --fec at
+    rates 1/2 and 3/4 (BER 0), --send-file (64 KB exact), the checkpoint
+    resumed (equal to the decode, from frame 0 and 500), --profile and
+    --trace-dir.  One line a case; a failed case raises."""
+    import tempfile
+
+    from rub_mimo_tpu_torch import ModemConfig
+
+    cfg = ModemConfig(pid_max=1000)  # the CLI's defaults
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        return cli_cases(dev, card, cfg, Path(tmp))
+
+
+def cli_cases(dev, card, cfg, tmp: Path) -> dict:
+    """cli_phase's cases, their files in tmp."""
+    from rub_mimo_tpu_torch.io import capture as capio
+    from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.pipeline import checkpoint, rx
+
+    out = {}
+
+    # run: the JSON report; decisions (from its checkpoint) equal rx.decode
+    ck = tmp / "run.npz"
+    (rc, text), counts = drive(lambda: run_cli(
+        ["run", "--json", "--save-checkpoint", ck]))
+    rep = json.loads(text)
+    cap, tx_data, h = simulator.simulate_capture(cfg, cli_spec(),
+                                                 payload_seed=42, device=dev)
+    ref = rx.make_decoder(cfg, device=dev)(cap)
+    ckpt = checkpoint.load(ck)
+    same = bool(np.array_equal(ckpt.rx_data, ref.rx_data.cpu().numpy()))
+    emit({"phase": "cli", "case": "run", "card": card, "rc": rc,
+          "capture": list(cap.shape), "synced": rep["synced"],
+          "ser_percent": rep["symbol_error_rate"],
+          "decode_seconds": rep["decode_seconds"],
+          "samples_per_second": rep["samples_per_second"],
+          "decodes": 2, "equal_to_rx_decode": same,
+          "launches": {k: v for k, v in counts.items() if v}})
+    require(rc == 0 and rep["synced"], "cli run failed")
+    require(rep["symbol_error_rate"] == [0.0, 0.0],
+            f"cli run SER {rep['symbol_error_rate']}")
+    require(counts["payload_fused_strip"] == 2,
+            f"cli run: K1 {counts['payload_fused_strip']} for 2 decodes")
+    require(same, "cli run's decisions differ from rx.decode's")
+    out["run"] = rep
+
+    # the checkpoint resumed: the decode's decisions, from 0 and 500
+    for k in (0, cfg.pid_max // 2):
+        (res, counts) = drive(lambda: checkpoint.resume_decode(
+            cap, ckpt, from_frame=k, device=dev))
+        data = res[1].cpu().numpy()
+        same = bool(np.array_equal(data,
+                                   ckpt.rx_data[:, k * cfg.M_occupied:]))
+        emit({"phase": "cli", "case": "checkpoint_resume", "card": card,
+              "from_frame": k, "equal_to_decode": same,
+              "launches": {n: v for n, v in counts.items() if v}})
+        require(same, f"resume from frame {k} differs from the decode")
+        require(counts["payload_fused_strip"] == 1, f"resume: {counts}")
+
+    # transmit, then the TX files through the channel, then decode
+    txd = tmp / "tx"
+    (rc, text), counts = drive(lambda: run_cli(["transmit", txd, "-q"]))
+    require(rc == 0, "cli transmit failed")
+    tx = torch.as_tensor(capio.read_capture(txd, 2, prefix="tx"),
+                         device=dev)
+    capio.write_capture(txd, simulator.apply_channel(
+        tx, h, cli_spec(), cfg).cpu().numpy(), prefix="rx")
+    (rc, text), counts = drive(lambda: run_cli(
+        ["decode", txd, "--tx-data", txd, "--json"]))
+    rep = json.loads(text)
+    emit({"phase": "cli", "case": "transmit_decode", "card": card,
+          "rc": rc, "tx_samples": tx.shape[-1],
+          "ser_percent": rep["symbol_error_rate"],
+          "launches": {k: v for k, v in counts.items() if v}})
+    require(rc == 0 and rep["symbol_error_rate"] == [0.0, 0.0],
+            f"transmit -> decode SER {rep['symbol_error_rate']}")
+    out["send_listen"] = cli_listen(card, cfg, txd,
+                                    capio.read_capture(txd, 2).shape[-1])
+    out["frontend"] = cli_frontend(dev, card, cfg, tmp)
+
+    # precoded: both rounds SER 0
+    (rc, text), counts = drive(lambda: run_cli(["run", "--precoded"]))
+    sers = printed(text, "symbol error rate")
+    emit({"phase": "cli", "case": "precoded", "card": card, "rc": rc,
+          "ser_percent_rounds": sers,
+          "launches": {k: v for k, v in counts.items() if v}})
+    require(rc == 0 and "precoded round" in text and sers == [0.0] * 4,
+            f"precoded SER {sers}")
+
+    # coded: BER 0 at 1/2 and 3/4
+    for rate in ("1/2", "3/4"):
+        (rc, text), counts = drive(lambda: run_cli(
+            ["run", "--fec", "conv_k7", "--fec-rate", rate]))
+        bers = printed(text, "coded BER lane")
+        emit({"phase": "cli", "case": "fec", "card": card, "rate": rate,
+              "rc": rc, "ber_percent": bers,
+              "launches": {k: v for k, v in counts.items() if v}})
+        require(rc == 0 and bers == [0.0, 0.0], f"fec {rate} BER {bers}")
+        require(counts["viterbi"] == 1 and counts["soft_llr"] == 1,
+                f"fec {rate}: {counts}")
+
+    # a seeded 64 KB file, recovered exact
+    src, dst = tmp / "file.bin", tmp / "file.out"
+    src.write_bytes(np.random.default_rng(42).integers(
+        0, 256, CLI_FILE_BYTES, dtype=np.uint8).tobytes())
+    (rc, text), counts = drive(lambda: run_cli(
+        ["run", "--send-file", src, "--recv-out", dst]))
+    exact = dst.exists() and dst.read_bytes() == src.read_bytes()
+    emit({"phase": "cli", "case": "send_file", "card": card, "rc": rc,
+          "bytes": CLI_FILE_BYTES, "crc_ok": "crc_ok=True" in text,
+          "exact": exact,
+          "launches": {k: v for k, v in counts.items() if v}})
+    require(rc == 0 and "crc_ok=True" in text and exact,
+            "send-file not recovered")
+
+    # --profile and --trace-dir
+    trace_dir = tmp / "trace"
+    rc, text = run_cli(["run", "--profile", "--trace-dir", trace_dir])
+    stages = {}
+    for ln in text.splitlines():
+        name = ln.split(":")[0].strip()
+        if name in ("sc_metric", "sync_full", "full_decode"):
+            rest = ln.split(":")[1].split()
+            stages[name] = {"ms": float(rest[0]),
+                            "samples_per_s": float(rest[2])}
+    trace = trace_dir / "trace.json"
+    emit({"phase": "cli", "case": "profile_trace", "card": card, "rc": rc,
+          "stages": stages, "trace_file": trace.exists(),
+          "trace_bytes": trace.stat().st_size if trace.exists() else 0})
+    require(rc == 0 and len(stages) == 3 and trace.exists(),
+            "--profile / --trace-dir")
+    out["stages"] = stages
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
@@ -1847,7 +2203,7 @@ def main() -> None:
     from rub_mimo_tpu_torch import (CommMode, Detector, ModemConfig,
                                     Modulation, tiny_config)
     from rub_mimo_tpu_torch.detect import zf
-    from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.io import native, simulator
     from rub_mimo_tpu_torch.kernels import _build
     from rub_mimo_tpu_torch.kernels import cp_strip as k7
     from rub_mimo_tpu_torch.kernels import eq_demap as k34
@@ -1881,10 +2237,16 @@ def main() -> None:
     kv._kernel_fn()
     ks._kernel_fn()
     build_s = time.perf_counter() - t0
+    # the native ingest library (g++, native/ingest.cpp): listen's socket
+    t0 = time.perf_counter()
+    require(native.available(), "the native ingest library did not build")
+    native_build_s = time.perf_counter() - t0
     emit({"phase": "device", "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0),
           "kernel_build_s": build_s,
+          "native_ingest": str(native.library_path().name),
+          "native_build_s": native_build_s,
           "ptxas": {name: [ln.strip() for ln in
                            Path(str(lib) + ".log").read_text().splitlines()
                            if "registers" in ln or "spill" in ln]
@@ -2792,6 +3154,9 @@ def main() -> None:
     del coded["rows"], coded["sig"]
     sfo_phase(dev, card)
     streaming_sfo_phase(dev, card)
+
+    # ---- phase 14: the command line (apps/cli.py) and what it drives ----
+    cli_phase(dev, card)
 
     # ---- the kernels line: bounds from this run's inputs ----
     K_op = len(tab)

@@ -15,10 +15,13 @@ channel and phase tracking), the TX side and channel simulator that
 build its captures, the presets (models.presets), the sharded decode and
 batched serving over a device mesh (parallel), the serving decoder and
 decode_all (pipeline.rx), the streaming decoder (pipeline.streaming,
-without its front-end and SFO options), and eight hand-written
-CUDA kernels (kernels/csrc/): the strip-fused payload tail, the fused
-payload tail, the CP strip, equalize + demap, the hard demap, the
-one-pass sync, the S&C metric and the halo exchange.
+with its SFO and front-end options), the coded chain and SFO correction,
+the command line (apps.cli) with what it drives (capture files and the
+native ingest, the RX front end, precoded TX, artifacts, checkpoints,
+stage profiling), and hand-written CUDA kernels (kernels/csrc/): the
+strip-fused payload tail, the fused payload tail, the CP strip, equalize
++ demap, the hard demap, the one-pass sync, the S&C metric, the halo
+exchange, the Viterbi decoder and the soft LLRs.
 """
 
 from rub_mimo_tpu_torch.config import (

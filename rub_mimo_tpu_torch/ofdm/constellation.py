@@ -107,6 +107,30 @@ def set_arb32opt_table(points) -> None:
     table.cache_clear()
 
 
+def load_arb32opt_table(path) -> np.ndarray:
+    """Read a 32-point table from .npy (complex, or [32, 2] float),
+    .json ([[re, im], ...]) or text (two floats a line), install it with
+    set_arb32opt_table and return the points (complex64)."""
+    import json
+    from pathlib import Path
+
+    path = Path(path)
+    if path.suffix == ".npy":
+        arr = np.load(path)
+    elif path.suffix == ".json":
+        arr = np.asarray(json.loads(path.read_text()), dtype=np.float64)
+    else:
+        arr = np.loadtxt(path, dtype=np.float64)
+    arr = np.asarray(arr)
+    if np.iscomplexobj(arr):
+        pts = arr.astype(np.complex64).reshape(-1)
+    else:
+        arr = arr.reshape(-1, 2)
+        pts = (arr[:, 0] + 1j * arr[:, 1]).astype(np.complex64)
+    set_arb32opt_table(pts)
+    return pts
+
+
 @functools.lru_cache(maxsize=1)
 def _arb32_optimal() -> np.ndarray:
     t = optimal_constellation(32)
@@ -144,10 +168,16 @@ def demap_planes(points: np.ndarray) -> np.ndarray:
 
 
 @device_constant
+def _points_on(points: bytes, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.frombuffer(points, np.complex64).copy(),
+                           device=device)
+
+
 def table_on(modulation: Modulation, device: torch.device) -> torch.Tensor:
     """``table(modulation)`` as a complex64 tensor on ``device``, made once
-    per device: a decode uploads nothing from the host."""
-    return torch.as_tensor(np.array(table(modulation)), device=device)
+    per table and device (an installed ARB32OPT table gets its own): a
+    decode uploads nothing from the host."""
+    return _points_on(table(modulation).tobytes(), torch.device(device))
 
 
 def modulate(symbols: torch.Tensor, modulation: Modulation) -> torch.Tensor:

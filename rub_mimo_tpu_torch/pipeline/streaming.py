@@ -37,8 +37,12 @@ read) and folded into ``sfo_hat``, and a StreamingResampler
 history: the replay and every later chunk go through it, so the next
 bursts decode from the corrected stream.
 
-Not ported: the blind front-end compensation (frontend_comp), which
-raises NotImplementedError.
+Blind front-end compensation (frontend_comp): the first warmup_chunks
+chunks are held on the device, the DC offset and IQ imbalance moments
+(estimate.frontend) are estimated over them, and they are replayed
+compensated; every later chunk (and push_block's blocks) is compensated
+before the seek.  The moments and the compensation stay on the device:
+no host read.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from rub_mimo_tpu_torch.detect import (alamouti, dispatch, postprocess,
                                        tracking, zf)
 from rub_mimo_tpu_torch.detect import weights as weights_mod
 from rub_mimo_tpu_torch.estimate import cfo as cfo_mod
-from rub_mimo_tpu_torch.estimate import ls, smooth
+from rub_mimo_tpu_torch.estimate import frontend, ls, smooth
 from rub_mimo_tpu_torch.estimate import sfo as sfo_mod
 from rub_mimo_tpu_torch.kernels import cp_strip as cp_strip_mod
 from rub_mimo_tpu_torch.kernels import payload_fused
@@ -111,16 +115,15 @@ class StreamingDecoder:
         without CUDA raises).  Chunks are [num_streams, chunk_size],
         chunk_size >= symbol_len.  sfo_correct (which needs
         cfg.track_channel) corrects the sampling-clock offset live, from
-        the second burst on (see the module note).  frontend_comp is not
-        ported and raises NotImplementedError; warmup_chunks belongs to
-        it."""
+        the second burst on; frontend_comp compensates the DC offset and
+        IQ imbalance estimated over the first warmup_chunks chunks (see
+        the module note)."""
         check_config(cfg, "StreamingDecoder")
         cfg.validate()
-        if frontend_comp:
-            raise NotImplementedError(
-                "StreamingDecoder(frontend_comp=True) needs the front-end "
-                "estimator (estimate/frontend.py), not ported yet: ROADMAP "
-                "queue 1 item 5")
+        self._fe_on = bool(frontend_comp)
+        self._fe_warmup = int(warmup_chunks)
+        self._fe_buf: List[torch.Tensor] = []
+        self._fe_dc = self._fe_w = None
         self._sfo_on = bool(sfo_correct)
         if self._sfo_on and not cfg.track_channel:
             raise ValueError(
@@ -297,6 +300,18 @@ class StreamingDecoder:
             raise ValueError(f"chunk must be [{self.S}, {self.C}], got "
                              f"{tuple(chunk.shape)}")
         chunk = self._to_device(chunk)
+        if self._fe_on:
+            if self._fe_dc is None:
+                # warm-up: held (a copy: the caller may reuse its buffer)
+                # until the moments can be estimated
+                self._fe_buf.append(chunk.clone())
+                if len(self._fe_buf) < self._fe_warmup:
+                    return []
+                return self._fe_start()
+            chunk = frontend.compensate(chunk, self._fe_dc, self._fe_w)
+        return self._push_compensated(chunk)
+
+    def _push_compensated(self, chunk: torch.Tensor) -> Frames:
         if self._resampler is None:
             return self._push_inner(chunk)
         # live SFO engaged: the decoder takes the resampler's output
@@ -306,17 +321,30 @@ class StreamingDecoder:
             emitted += self._push_inner(c)
         return emitted
 
+    def _fe_start(self) -> Frames:
+        """Estimate the front-end moments over the warm-up chunks (on the
+        device), then replay them compensated."""
+        self._fe_dc, self._fe_w = frontend.estimate_frontend(
+            torch.cat(self._fe_buf, dim=-1))
+        emitted: Frames = []
+        for c in self._fe_buf:
+            emitted += self._push_compensated(
+                frontend.compensate(c, self._fe_dc, self._fe_w))
+        self._fe_buf = []
+        return emitted
+
     def push_block(self, samples) -> Frames:
         """Feed K chunks at once ([S, K*chunk_size], numpy or tensor,
         moved to the device once).
 
         While the decoder is seeking, each chunk's seek step runs on the
         device with no read in between, and the K fired flags are read
-        once.  With no fire the scanned state is committed; on a fire (or
-        in any other phase, for K = 1, with the fallback sync, which
-        needs per-chunk host logic, or with the live SFO resampler
-        engaged) the block goes chunk by chunk through
-        the ordinary path from the unchanged state, so the result equals
+        once (after the front-end compensation, when it is on).  With no
+        fire the scanned state is committed; on a fire (or in any other
+        phase, for K = 1, with the fallback sync, which needs per-chunk
+        host logic, during the front end's warm-up, or with the live SFO
+        resampler engaged) the block goes chunk by chunk through the
+        ordinary path from the unchanged state, so the result equals
         chunk-at-a-time feeding."""
         C = self.C
         shape = tuple(samples.shape)
@@ -327,12 +355,16 @@ class StreamingDecoder:
         x = self._to_device(samples)
         chunks = [x[:, k * C:(k + 1) * C] for k in range(K)]
         fast_ok = (self.phase == "seek" and K > 1
-                   and not self.cfg.sync_fallback and self._resampler is None)
+                   and not self.cfg.sync_fallback and self._resampler is None
+                   and not (self._fe_on and self._fe_dc is None))
         if not fast_ok:
             emitted: Frames = []
             for c in chunks:
                 emitted += self.push(c)
             return emitted
+        if self._fe_on:
+            x = frontend.compensate(x, self._fe_dc, self._fe_w)
+            chunks = [x[:, k * C:(k + 1) * C] for k in range(K)]
         tail, lb, g, fired = self._tail, self._last_below, self.gpos, []
         for c in chunks:
             st = self._seek_step(tail, lb, c, g)
@@ -704,10 +736,14 @@ class StreamingDecoder:
         return out
 
     def finalize(self) -> Frames:
-        """Flush the live SFO resampler's lookahead, then the queued
+        """Replay a front-end warm-up the stream ended in, flush the live
+        SFO resampler's lookahead, then the queued
         payload with zero padding (what the offline decode's zero-extended
         window holds)."""
         out: Frames = []
+        if self._fe_on and self._fe_dc is None and self._fe_buf:
+            # the stream ended inside the warm-up: estimate on what came
+            out += self._fe_start()
         if self._resampler is not None:
             for c in self._resampler.flush():
                 out += self._push_inner(c)

@@ -1549,3 +1549,88 @@ def test_streamed_sfo_on_card_matches_cpu():
     for (si, _, a), (sj, _, b) in zip(card.burst_results(),
                                       cpu.burst_results()):
         assert si == sj and torch.equal(a.cpu(), b)
+
+
+# ---- the front end, the streamed front end and the command line ----
+_FE_CFG = tiny_config(bit_exact=False, pid_max=32, modulation=Modulation.QAM16)
+_FE_SPEC = simulator.ChannelSpec(snr_db=35.0, delay=2381, seed=5,
+                                 iq_amp_db=1.0, iq_phase_deg=5.0,
+                                 dc_offset=0.05 + 0.03j)
+
+
+def test_frontend_on_card_matches_cpu():
+    """estimate_frontend and compensate on the card equal the CPU port's
+    within 1e-5 (the reductions sum in another order)."""
+    from rub_mimo_tpu_torch.estimate import frontend
+
+    require_cuda()
+    cap, _, _ = simulator.simulate_capture(_FE_CFG, _FE_SPEC, device="cpu")
+    dc, w = frontend.estimate_frontend(cap)
+    gdc, gw = frontend.estimate_frontend(cap.cuda())
+    assert gdc.device.type == "cuda"
+    np.testing.assert_allclose(n(gdc), n(dc), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(n(gw), n(w), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(n(frontend.compensate(cap.cuda(), gdc, gw)),
+                               n(frontend.compensate(cap, dc, w)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_streamed_frontend_on_card_matches_cpu():
+    """StreamingDecoder(frontend_comp=True) on the card: the decisions of
+    the CPU stream (chunks of 256, a push_block after the warm-up), and
+    no host read in the payload phase."""
+    require_cuda()
+    cap, _, _ = simulator.simulate_capture(_FE_CFG, _FE_SPEC, device="cpu")
+    C = 256
+    nc = -(-cap.shape[-1] // C)
+    x = torch.nn.functional.pad(cap, (0, nc * C - cap.shape[-1]))
+    outs = []
+    for device in ("cpu", "cuda"):
+        xd = x.to(device)
+        dec = streaming.StreamingDecoder(_FE_CFG, device=device, chunk_size=C,
+                                         frontend_comp=True, warmup_chunks=4)
+        for i in range(4):
+            dec.push(xd[:, i * C:(i + 1) * C])
+        dec.push_block(xd[:, 4 * C:8 * C])
+        i = 8
+        while dec.phase != "payload" and i < nc:
+            dec.push(xd[:, i * C:(i + 1) * C])
+            i += 1
+        reads = dec.host_reads
+        while i < nc:
+            dec.push(xd[:, i * C:(i + 1) * C])
+            if dec.phase == "payload":
+                assert dec.host_reads == reads
+            i += 1
+        dec.finalize()
+        assert dec.synced
+        outs.append((dec.sync_index, n(dec.result()[1])))
+    assert outs[0][0] == outs[1][0]
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+
+
+def test_cli_run_on_card(capsys, tmp_path):
+    """cli.main(["run", ...]) at tiny dims on the card: SER 0, K1 once a
+    decode (two decodes: the first and the timed one), and the checkpoint
+    resumes to the same decisions on the card."""
+    from rub_mimo_tpu_torch.apps import cli
+    from rub_mimo_tpu_torch.pipeline import checkpoint
+
+    require_cuda()
+    before = pf.payload_fused_strip.launches
+    ck = tmp_path / "run.npz"
+    assert cli.main(["run", "--num_subcarriers", "64", "--cp_len", "16",
+                     "--num_access_codes", "4", "--frames", "8",
+                     "--modulation", "qpsk", "--snr", "35", "--delay", "300",
+                     "--save-checkpoint", str(ck)]) == 0
+    out = capsys.readouterr().out
+    sers = [ln for ln in out.splitlines() if "symbol error rate" in ln]
+    assert len(sers) == 2 and all(s.endswith(": 0.000000%") for s in sers)
+    assert pf.payload_fused_strip.launches - before == 2
+    ckpt = checkpoint.load(ck)
+    cap, _, _ = simulator.simulate_capture(
+        ckpt.config, simulator.ChannelSpec(snr_db=35.0, delay=300, seed=42),
+        payload_seed=42, device="cuda")
+    _, data = checkpoint.resume_decode(cap, ckpt, device="cuda")
+    assert data.device.type == "cuda"
+    np.testing.assert_array_equal(n(data), ckpt.rx_data)

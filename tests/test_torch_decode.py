@@ -204,6 +204,17 @@ def test_decode_runs_with_jax_unimportable():
         "from rub_mimo_tpu_torch.ofdm import fec\n"
         "from rub_mimo_tpu_torch.estimate import sfo\n"
         "from rub_mimo_tpu_torch.utils import resample\n"
+        "from rub_mimo_tpu_torch.apps import cli\n"
+        "from rub_mimo_tpu_torch.io import capture, native\n"
+        "from rub_mimo_tpu_torch.estimate import frontend\n"
+        "from rub_mimo_tpu_torch.detect import precode\n"
+        "from rub_mimo_tpu_torch.pipeline import artifacts, checkpoint\n"
+        "from rub_mimo_tpu_torch.ofdm import liquid_tables\n"
+        "from rub_mimo_tpu_torch.utils import profiling\n"
+        "assert cli.main(['run', '--cpu', '--num_subcarriers', '64',\n"
+        "                 '--cp_len', '16', '--num_access_codes', '4',\n"
+        "                 '--frames', '8', '--modulation', 'qpsk',\n"
+        "                 '--delay', '300', '--precoded', '-q']) == 0\n"
         "cfg = tiny_config(bit_exact=False)\n"
         "spec = simulator.ChannelSpec(snr_db=35.0, delay=300, seed=3)\n"
         "cap, tx, _ = simulator.simulate_capture(cfg, spec, device='cpu')\n"

@@ -140,8 +140,9 @@ def test_streaming_sfo_requires_tracking():
     with pytest.raises(ValueError, match="track_channel"):
         streaming.StreamingDecoder(cfg, device="cpu", chunk_size=256,
                                    sfo_correct=True)
-    with pytest.raises(NotImplementedError):
-        streaming.StreamingDecoder(cfg.replace(track_channel=True,
-                                               track_block_frames=4),
-                                   device="cpu", chunk_size=256,
-                                   sfo_correct=True, frontend_comp=True)
+    # with the tracking, it takes the front-end compensation too
+    dec = streaming.StreamingDecoder(cfg.replace(track_channel=True,
+                                                 track_block_frames=4),
+                                     device="cpu", chunk_size=256,
+                                     sfo_correct=True, frontend_comp=True)
+    assert dec._fe_on and dec._sfo_on

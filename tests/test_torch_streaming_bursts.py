@@ -156,8 +156,9 @@ def test_streaming_refuses():
     with pytest.raises(TypeError):
         streaming.decode_stream(np.zeros((2, 256), np.complex64), BASE,
                                 256, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        streaming.StreamingDecoder(PBASE, device="cpu", frontend_comp=True)
+    # the front-end compensation is ported (tests/test_torch_frontend.py)
+    assert streaming.StreamingDecoder(PBASE, device="cpu",
+                                      frontend_comp=True)._fe_on
     # live SFO correction is ported; it needs the tracked refits
     with pytest.raises(ValueError, match="track_channel"):
         streaming.StreamingDecoder(PBASE, device="cpu", sfo_correct=True)

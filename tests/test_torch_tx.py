@@ -44,14 +44,18 @@ def test_transmit_frame_matches_jax(cfg):
 
 
 def test_transmit_frame_rejects_unported_modes():
-    """Every mode transmits now; precoded TX is not ported yet, and a
-    JAX package config is refused."""
+    """Every mode transmits now, precoded TX too (here a SISO frame with
+    a precoder, equal to the JAX package's within 1e-5 relative); a JAX
+    package config is refused."""
     cfg = oracle.TINY.replace(mode=CommMode.SISO)
     tx_data = jfg.generate_payload_symbols(cfg)
     precoder = np.ones((cfg.M, 2, 2), np.complex64)
-    with pytest.raises(NotImplementedError, match="precoded"):
-        framegen.transmit_frame(oracle.pcfg(cfg), tx_data, device="cpu",
-                                precoder=precoder)
+    ours = oracle.n(framegen.transmit_frame(oracle.pcfg(cfg), tx_data,
+                                            device="cpu",
+                                            precoder=precoder))
+    ref = np.asarray(jfg.transmit_frame(cfg, jnp.asarray(tx_data),
+                                        precoder=jnp.asarray(precoder)))
+    assert _rel(ours, ref) < 1e-5
     with pytest.raises(TypeError, match="config_from_jax"):
         framegen.transmit_frame(cfg, tx_data, device="cpu")
 
