@@ -112,6 +112,19 @@ front end's device time against its bytes bound), the streamed front end
 host read in its payload phase), --precoded, --fec at rates 1/2 and 3/4,
 --send-file of 64 KB, and --profile with --trace-dir.  The native ingest
 library is built (g++) with the kernels.
+It decodes the operating point across processes (parallel.multiprocess,
+one process a rank): on one card 2 gloo ranks of 2 time shards on
+cuda:0 at (4, 1), with pallas_dma (K8 pulling a halo through the other
+rank's IPC-mapped buffer, once a rank a decode, bit for bit against its
+plain version) and ppermute; on 2+ cards one NCCL rank a card at
+(n, 1), and on four mimo_4x4_wideband (4, 1) with pallas_dma; every rank
+equal to its single decode with SER 0, rank 0's wall ms beside the
+single-controller decode of the same mesh (multiprocess lines).  It
+replays the operating point through apps.live_view into a LiveView on
+127.0.0.1 (1,000 frames, SER 0 from its frames, samples/s beside
+decode_stream) and runs apps.analyze on `cli run --log-dir`'s artifacts
+(its SER equal to the run's); report_html runs where matplotlib is
+installed (apps lines).
 Every launch count is set to 0 just before a path runs and read just
 after.  It decodes the
 checked-in golden capture, times the decodes and the kernels with CUDA
@@ -2196,6 +2209,218 @@ def cli_cases(dev, card, cfg, tmp: Path) -> dict:
     return out
 
 
+MP_ITERS = 10       # timed decodes of each multi-process case (rank 0's)
+MP_TIMEOUT = 420.0  # a launch's limit: a hung rank fails the phase
+APPS_CHUNK = 65536  # live_view's replay chunk (the streaming default)
+
+
+def wall_ms(fn, n: int = MP_ITERS) -> dict:
+    """Host wall ms of fn() synchronized at both ends on every card,
+    median (min, max) of n runs after one warm-up."""
+    fn()
+    sync_all()
+    wall = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return {"median": statistics.median(wall), "min": min(wall),
+            "max": max(wall), "runs": n}
+
+
+def k8_rank_bound(k8: dict) -> float:
+    """The bound (ms) of one rank's cross-process K8 launch: its shards'
+    [S, M-1] complex64 halos read (those with a left neighbour) and
+    written once over HBM, or the remote reads over NVLink where the
+    neighbour rank's buffer is on another card, the larger of the two."""
+    S, H = k8["halo"]
+    halo = S * H * 8
+    t_hbm = (k8["reads"] + k8["shards"]) * halo / HBM_BYTES_PER_S
+    t_link = (k8["remote_reads"] * halo / NVLINK_BYTES_PER_S
+              if k8["remote_on_another_card"] else 0.0)
+    return max(t_hbm, t_link) * 1e3
+
+
+def check_ranks(name: str, recs: list, ranks: int, expect: dict) -> dict:
+    """The multi-process records of one case: every rank equal to its
+    single decode with SER 0, its launches as ``expect`` (kernels not
+    named: 0) and, where K8 ran, its halos bit for bit; returns rank 0's
+    record with the ranks' launches and K8 checks beside it."""
+    require(sorted(r["rank"] for r in recs) == list(range(ranks)),
+            f"multiprocess {name}: records of ranks "
+            f"{sorted(r['rank'] for r in recs)}")
+    want = {k: expect.get(k, 0) for k in KERNELS}
+    for r in recs:
+        require(r["equal_to_single"], f"multiprocess {name}: rank "
+                f"{r['rank']} differs from the single decode: {r}")
+        require(all(x == 0.0 for x in r["ser_percent"]),
+                f"multiprocess {name}: rank {r['rank']} SER "
+                f"{r['ser_percent']}")
+        require(r["launches"] == want, f"multiprocess {name}: rank "
+                f"{r['rank']} launches {r['launches']}, expected {want}")
+        require(not r["jax_loaded"], f"multiprocess {name}: jax imported")
+        if "k8" in r:
+            require(r["k8"]["bit_equal"], f"multiprocess {name}: rank "
+                    f"{r['rank']}'s K8 differs from its plain version")
+    r0 = min(recs, key=lambda r: r["rank"])
+    return {**r0, "launches_by_rank": [r["launches"] for r in recs],
+            "k8_by_rank": [r.get("k8") for r in recs]}
+
+
+def multiprocess_phase(card: str, shard_runs: dict, xc) -> dict:
+    """The sharded decode across processes (parallel.multiprocess, one
+    process a rank, each held against the single decode on its own card
+    and printing its record): on one card, 2 gloo ranks of 2 time shards
+    each on cuda:0, the operating point's (4, 1) mesh under pallas_dma
+    (K8 pulling through the other rank's IPC-mapped buffer, K6 and K1 on
+    the rank's shards) and ppermute (the coarse sync, K1); on 2+ cards one
+    NCCL rank a card at (n, 1), and on four mimo_4x4_wideband (4, 1) with
+    pallas_dma.  Rank 0's wall ms a decode (median of MP_ITERS) beside
+    the single-controller decode of the same mesh, timed here."""
+    from rub_mimo_tpu_torch.parallel import multiprocess as mp
+
+    def k1_k6_k8(shards, impl):
+        dma = impl == "pallas_dma"
+        return {"payload_fused_strip": shards, "sc_metric": int(dma),
+                "ring_shift_right": int(dma)}
+
+    out = {}
+    cases = [("one_card_gloo", 2, 2, "cuda:0", "gloo", "operating_point",
+              (4, 1), 42, {impl: shard_runs[f"{impl}_4x1"]
+                           for impl in ("pallas_dma", "ppermute")})]
+    cards = torch.cuda.device_count()
+    if xc is not None:
+        n = xc["n_time"]
+        cases.append((f"cards_nccl_{n}x1", n, 1, "cuda", "nccl",
+                      "operating_point", (n, 1), 42,
+                      {impl: xc["runs"][f"{impl}_{n}x1"]
+                       for impl in ("pallas_dma", "ppermute")}))
+        if n >= 4:
+            cases.append(("cards_nccl_mimo_4x4_wideband", 4, 1, "cuda",
+                          "nccl", "mimo_4x4_wideband", (4, 1), 6,
+                          {"pallas_dma": xc["runs"][
+                              "mimo_4x4_wideband_pallas_dma_4x1"]}))
+    else:
+        emit({"phase": "multiprocess", "case": "across_cards", "run": False,
+              "cards": cards})
+    for (name, ranks, per, device, backend, config, shape, seed,
+         singles) in cases:
+        single_ms = {impl: wall_ms(lambda d=d, p=p: d(*p))
+                     for impl, (d, p) in singles.items()}
+        t0 = time.perf_counter()
+        recs = mp.launch(ranks, per, device=device, backend=backend,
+                         halo_impl=tuple(singles), config=config,
+                         meshes=(shape,), seeds=(seed,),
+                         timing_iters=MP_ITERS, timeout=MP_TIMEOUT)
+        launch_s = time.perf_counter() - t0
+        for impl in singles:
+            r0 = check_ranks(f"{name}/{impl}", [
+                r for r in recs if r["halo_impl"] == impl], ranks,
+                k1_k6_k8(per, impl))
+            rec = {"phase": "multiprocess", "case": name, "card": card,
+                   "config": config, "halo_impl": impl, "ranks": ranks,
+                   "shards_per_rank": per, "backend": backend,
+                   "mesh": list(shape), "capture": r0["capture"],
+                   "launches_per_rank": r0["launches_by_rank"],
+                   "equal_to_single": True, "ser_percent": r0["ser_percent"],
+                   "G_max_abs_err": r0["G_max_abs_err"],
+                   "mismatches": r0["mismatches"],
+                   "k8_by_rank": r0["k8_by_rank"],
+                   "wall_ms_rank0": r0["wall_ms"],
+                   "single_controller_wall_ms": single_ms[impl],
+                   "launch_seconds": launch_s}
+            emit(rec)
+            out[f"{name}/{impl}"] = rec
+    return out
+
+
+def apps_phase(dev, card: str, cfg, cap: torch.Tensor, tx_data) -> dict:
+    """apps.live_view's replay of the operating point through a LiveView
+    served on 127.0.0.1 (chunks of APPS_CHUNK: 1,000 frames, SER 0 from
+    the frames it took, its JSON snapshot; samples/s a stream beside
+    decode_stream without the view, both warm); apps.analyze on `cli run
+    --log-dir`'s artifacts (its SER equal to the run's); report_html
+    where matplotlib is installed."""
+    import tempfile
+    import urllib.request
+
+    from rub_mimo_tpu_torch.apps import analyze, live_view
+    from rub_mimo_tpu_torch.ofdm import constellation
+    from rub_mimo_tpu_torch.pipeline import streaming
+
+    S, T = cap.shape
+    view = live_view.LiveView(cfg, port=0)
+    port = view.start()
+    try:
+        live_view.replay(live_view.LiveView(cfg), cap, cfg, device=dev,
+                         chunk_size=APPS_CHUNK)  # warm-up
+        sync_all()
+        t0 = time.perf_counter()
+        (dec, shown), counts = drive(lambda: live_view.replay(
+            view, cap, cfg, device=dev, chunk_size=APPS_CHUNK))
+        view_s = time.perf_counter() - t0
+        snap = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/data.json", timeout=10).read())
+    finally:
+        view.stop()
+    require(sorted(shown) == list(range(cfg.pid_max)),
+            f"live_view: {len(shown)} frames, expected {cfg.pid_max}")
+    rx_sig = torch.stack([shown[k] for k in range(cfg.pid_max)], dim=1)
+    ser = stream_ser(constellation.demodulate(rx_sig.reshape(S, -1),
+                                              cfg.modulation), tx_data, cfg)
+    require(all(x == 0.0 for x in ser), f"live_view: SER {ser}")
+    require(snap["n_frames"] == cfg.pid_max and snap["synced"]
+            and snap["phase"] == "done", f"live_view snapshot: {snap}")
+
+    def stream():
+        d = streaming.decode_stream(cap, cfg, APPS_CHUNK, device=dev)
+        d.finalize()
+        return d
+
+    stream()
+    sync_all()
+    t0 = time.perf_counter()
+    stream()
+    sync_all()
+    plain_s = time.perf_counter() - t0
+    emit({"phase": "apps", "case": "live_view", "card": card,
+          "capture": [S, T], "chunk": APPS_CHUNK, "frames": len(shown),
+          "ser_percent": ser, "snapshot_n_frames": snap["n_frames"],
+          "launches": counts, "seconds_with_view": view_s,
+          "seconds_decode_stream": plain_s,
+          "samples_per_s_per_stream_with_view": T / view_s,
+          "samples_per_s_per_stream_decode_stream": T / plain_s})
+    with tempfile.TemporaryDirectory(prefix="apps_") as tmp:
+        rc, text = run_cli(["run", "--json", "--log-dir", tmp])
+        rep = json.loads(text)
+        art = analyze.load(tmp, cfg.num_streams)
+        stats = analyze.analyze(art, cfg.M_occupied)
+        a_ser = [float(x) * 100.0 for x in stats["ser"]]
+        require(rc == 0 and all(abs(a - b) < 1e-9 for a, b in zip(
+            a_ser, rep["symbol_error_rate"])),
+            f"analyze SER {a_ser} vs the run's {rep['symbol_error_rate']}")
+        emit({"phase": "apps", "case": "analyze", "card": card, "rc": rc,
+              "ser_percent_analyze": a_ser,
+              "ser_percent_run": rep["symbol_error_rate"],
+              "errors_total": stats["errors_total"].tolist(),
+              "artifacts": sorted(p.name for p in Path(tmp).iterdir())[:8]})
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            emit({"phase": "apps", "case": "report_html", "run": False,
+                  "why": "matplotlib is not installed here; render imports "
+                         "it (tests/test_torch_apps.py runs it on the CPU)"})
+        else:
+            from rub_mimo_tpu_torch.apps import report_html
+
+            html = report_html.render(tmp, cfg, Path(tmp) / "report.html",
+                                      report_json=text)
+            emit({"phase": "apps", "case": "report_html", "run": True,
+                  "bytes": html.stat().st_size})
+    return {"ser": ser, "frames": len(shown)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is "
@@ -3158,6 +3383,12 @@ def main() -> None:
     # ---- phase 14: the command line (apps/cli.py) and what it drives ----
     cli_phase(dev, card)
 
+    # ---- phase 15: the sharded decode across processes ----
+    mproc = multiprocess_phase(card, shard_runs, xc)
+
+    # ---- phase 16: live_view, analyze (and report_html) ----
+    apps_phase(dev, card, cfg, cap, tx_data)
+
     # ---- the kernels line: bounds from this run's inputs ----
     K_op = len(tab)
     x2, W2, g2, _, _ = cases["payload_fused"]["args"]
@@ -3267,7 +3498,20 @@ def main() -> None:
                      "blocks_per_sm"],
                  "chunk": k6_split["operating_point"]["geometry"]["chunk"]},
              "ring_shift_right": {
-                 "note": "bound well under 1 us: its time is launch latency"},
+                 "note": "bound well under 1 us: its time is launch latency",
+                 "launches_per_multiprocess_decode": mproc[
+                     "one_card_gloo/pallas_dma"]["launches_per_rank"][0][
+                     "ring_shift_right"],
+                 "multiprocess": {
+                     key: {"kernel_us_by_rank": [
+                         k["kernel_us"] for k in v["k8_by_rank"]],
+                         "exchange_wall_ms_by_rank": [
+                             k["exchange_wall_ms_median"]
+                             for k in v["k8_by_rank"]],
+                         "bound_ms_by_rank": [
+                             k8_rank_bound(k) for k in v["k8_by_rank"]]}
+                     for key, v in mproc.items()
+                     if v["halo_impl"] == "pallas_dma"}},
              "viterbi": {
                  "tpu_kernel": None,
                  "note": "replaces the JAX package's lax.scan pair",

@@ -18,7 +18,10 @@ decode_all (pipeline.rx), the streaming decoder (pipeline.streaming,
 with its SFO and front-end options), the coded chain and SFO correction,
 the command line (apps.cli) with what it drives (capture files and the
 native ingest, the RX front end, precoded TX, artifacts, checkpoints,
-stage profiling), and hand-written CUDA kernels (kernels/csrc/): the
+stage profiling), the sharded decode across processes
+(parallel.mesh.init_distributed, parallel.multiprocess), the offline
+analysis, HTML report and live view (apps), the device registry
+(io.devices), and hand-written CUDA kernels (kernels/csrc/): the
 strip-fused payload tail, the fused payload tail, the CP strip, equalize
 + demap, the hard demap, the one-pass sync, the S&C metric, the halo
 exchange, the Viterbi decoder and the soft LLRs.

@@ -35,9 +35,18 @@
 // Each thread moves one float2; neighbouring threads touch neighbouring
 // addresses of a row, so a peer read is whole 32-byte sectors.
 //
+// Across processes (one rank a card, or several ranks on one card) the
+// kernel is the same: each rank copies its shards' halos into a buffer it
+// exports once with ipc_export, its neighbour maps that buffer once with
+// ipc_open, and the neighbour's destination then pulls through the mapped
+// pointer.  The two ranks' host handshake around the launch (the
+// wrapper's) orders the copy, the pull and the next copy, where the TPU
+// kernel had its send and receive semaphores.
+//
 // Plain C interface for ctypes; the functions return a cudaError_t.
 
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 namespace {
 
@@ -125,6 +134,90 @@ extern "C" int enable_peer_access(int device, int peer) {
     (void)cudaGetLastError();
     err = cudaSuccess;
   }
+  const cudaError_t restore = cudaSetDevice(current);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+// ---- buffers shared across processes -------------------------------------
+
+namespace {
+
+// cuMemGetAddressRange_v2 of libcuda, looked up at first use (the
+// library links only the CUDA runtime)
+typedef int (*AddressRangeFn)(unsigned long long*, size_t*,
+                              unsigned long long);
+
+AddressRangeFn address_range() {
+  static AddressRangeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr) {
+      fn = reinterpret_cast<AddressRangeFn>(
+          dlsym(lib, "cuMemGetAddressRange_v2"));
+    }
+  }
+  return fn;
+}
+
+}  // namespace
+
+// Export the allocation that holds `ptr` (memory of `device`) for other
+// processes: its handle into *handle and ptr's byte offset from the
+// allocation's base into *offset.  A handle names the whole cudaMalloc
+// block, which a caching allocator shares among tensors, so the importer
+// adds the offset to the base it maps.  The current device is restored.
+extern "C" int ipc_export(int device, const void* ptr,
+                          cudaIpcMemHandle_t* handle, long long* offset) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaFree(nullptr);  // the context is current
+  if (err == cudaSuccess) {
+    const AddressRangeFn fn = address_range();
+    unsigned long long base = 0;
+    size_t size = 0;
+    if (fn == nullptr) {
+      err = cudaErrorSharedObjectSymbolNotFound;
+    } else if (fn(&base, &size, reinterpret_cast<unsigned long long>(ptr))
+               != 0) {
+      err = cudaErrorInvalidDevicePointer;
+    } else {
+      err = cudaIpcGetMemHandle(handle, reinterpret_cast<void*>(base));
+      *offset = (long long)(reinterpret_cast<unsigned long long>(ptr) - base);
+    }
+  }
+  const cudaError_t restore = cudaSetDevice(current);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+// Map another process's exported allocation into this one on `device`:
+// *base is where its base lies here.  cudaIpcMemLazyEnablePeerAccess lets
+// a card read another card's allocation; on the exporter's own card (two
+// ranks on one card) no peer access is involved.  A process cannot open
+// its own handle.  The current device is restored.
+extern "C" int ipc_open(int device, const cudaIpcMemHandle_t* handle,
+                        void** base) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaIpcOpenMemHandle(base, *handle,
+                               cudaIpcMemLazyEnablePeerAccess);
+  }
+  const cudaError_t restore = cudaSetDevice(current);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+// Unmap what ipc_open mapped; before the exporter frees its buffer.
+extern "C" int ipc_close(int device, void* base) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaIpcCloseMemHandle(base);
   const cudaError_t restore = cudaSetDevice(current);
   return (int)(err != cudaSuccess ? err : restore);
 }

@@ -19,6 +19,11 @@ card is read over NVLink through its own pointer, after peer access from
 the destination card to the source card is enabled (``peer_pairs``).
 The TPU kernel's symmetric push, its wait for its own send and receive
 and the masking of its wrap-around copy are not carried over.
+
+Across processes (a mesh over several ranks, parallel.mesh) the kernel
+is the same and pulls through a pointer into the left neighbour rank's
+memory: ``ProcessHalo`` (one rank a card under NCCL, or several ranks on
+one card under gloo).
 """
 
 from __future__ import annotations
@@ -99,6 +104,14 @@ def _lib():
     lib.ring_shift_right.restype = ctypes.c_int
     lib.enable_peer_access.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.enable_peer_access.restype = ctypes.c_int
+    lib.ipc_export.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                               ctypes.c_char_p,
+                               ctypes.POINTER(ctypes.c_longlong)]
+    lib.ipc_open.argtypes = [ctypes.c_int, ctypes.c_char_p,
+                             ctypes.POINTER(ctypes.c_void_p)]
+    lib.ipc_close.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.ipc_export, lib.ipc_open, lib.ipc_close):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -163,6 +176,9 @@ def ring_shift_right(parts, mesh):
     0's launch only writes zeros); a (2, 2) mesh's "sc" column 0 on cards
     0 and 2 (what the sharded decode's stage A exchanges) 2."""
     n_time, n_sc = _grid(parts, mesh)
+    if getattr(mesh, "spans_processes", False):
+        raise ValueError("ring_shift_right: the mesh spans processes; "
+                         "its halos go through ProcessHalo")
     flat = [x for row in parts for x in row]
     devices = {x.device for x in flat}
     if devices == {torch.device("cpu")}:
@@ -229,3 +245,127 @@ def ring_shift_right(parts, mesh):
 
 
 ring_shift_right.launches = 0
+
+
+IPC_HANDLE_BYTES = 64  # cudaIpcMemHandle_t
+
+
+def _ipc(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"ProcessHalo: {what} failed: CUDA error {err}")
+
+
+class ProcessHalo:
+    """K8 across processes, on a mesh over several ranks whose shards each
+    rank holds on one CUDA device: ``halo(parts)`` is ring_shift_right of
+    the ranks' [rows, length] complex64 halos, each rank passing and
+    getting its own shards' (None elsewhere), with one launch a rank.
+
+    At construction (every rank at once) each rank allocates the buffer
+    its shards' halos are copied into, [its shards, rows, length], and
+    exports it (``ipc_export``: the handle covers the caching allocator's
+    whole block, so the byte offset goes with it); the handles go across
+    once through the group, and each rank maps the buffer of every rank it
+    reads from (``ipc_open``).  A call copies the local halos in, waits
+    for its stream, meets every rank at a barrier (every buffer written),
+    launches the kernel (a shard whose left neighbour is another rank's
+    pulls through the mapped pointer, the others from this rank's own
+    buffer), waits for it and meets them again (every read done, so a
+    buffer may be overwritten): the host handshake that replaces the TPU
+    kernel's send and receive semaphores.  ``close`` (every rank at once)
+    unmaps, then meets the others before the buffers may be freed."""
+
+    def __init__(self, mesh, rows: int, length: int):
+        import torch.distributed as dist
+
+        mine = mesh.local_shards()
+        devices = {torch.device(mesh.devices[t, s]) for t, s in mine}
+        dev = next(iter(devices))
+        if len(devices) != 1 or dev.type != "cuda":
+            raise ValueError("ProcessHalo: a rank's shards must all be on "
+                             f"one CUDA device, got {sorted(map(str, devices))}")
+        if len(mine) > MAX_SHARDS:
+            raise ValueError(f"ProcessHalo: {len(mine)} shards a rank, the "
+                             f"kernel takes at most {MAX_SHARDS}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.mesh, self.device, self.shape = mesh, dev, (rows, length)
+        self.buf = torch.empty((len(mine), rows, length),
+                               dtype=torch.complex64, device=dev)
+        handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+        offset = ctypes.c_longlong()
+        _ipc(_lib().ipc_export(dev.index, self.buf.data_ptr(), handle,
+                               ctypes.byref(offset)), "ipc_export")
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (handle.raw, offset.value))
+        slot = rows * length * self.buf.element_size()
+        self.opened = {}  # rank -> its buffer's block, mapped here
+        self.src = []     # per local shard: the address it pulls, or None
+        for t, s in mine:
+            if t == 0:
+                self.src.append(None)
+            elif mesh.is_local(t - 1, s):
+                self.src.append(self.buf[mine.index((t - 1, s))].data_ptr())
+            else:
+                r = mesh.rank_of(t - 1, s)
+                if r not in self.opened:
+                    base = ctypes.c_void_p()
+                    _ipc(_lib().ipc_open(dev.index, every[r][0],
+                                         ctypes.byref(base)), "ipc_open")
+                    self.opened[r] = base.value
+                self.src.append(self.opened[r] + every[r][1]
+                                + mesh.shards_of(r).index((t - 1, s)) * slot)
+
+    def _barrier(self) -> None:
+        import torch.distributed as dist
+
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
+
+    def __call__(self, parts):
+        n_time, n_sc = _grid(parts, self.mesh)
+        if self.buf is None:
+            raise RuntimeError("ProcessHalo: called after close()")
+        mine = self.mesh.local_shards()
+        for i, (t, s) in enumerate(mine):
+            x = parts[t][s]
+            if x.dtype != torch.complex64 or tuple(x.shape) != self.shape:
+                raise ValueError(f"ProcessHalo: halos must be complex64 "
+                                 f"{list(self.shape)}, got {x.dtype} "
+                                 f"{list(x.shape)}")
+            self.buf[i].copy_(x)
+        stream = torch.cuda.current_stream(self.device)
+        stream.synchronize()
+        self._barrier()  # every rank's halos are in its buffer
+        recv = torch.empty_like(self.buf)
+        p = _Params()
+        p.src_row_stride, p.rows, p.len = self.shape[1], *self.shape
+        p.n_dst = len(mine)
+        for k, src in enumerate(self.src):
+            p.dst[k] = recv[k].data_ptr()
+            p.src[k] = src
+        with torch.cuda.device(self.device):
+            err = _lib().ring_shift_right(ctypes.byref(p), stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ring_shift_right kernel launch failed on "
+                               f"{self.device}: CUDA error {err}")
+        ring_shift_right.launches += 1
+        stream.synchronize()
+        self._barrier()  # every pull is done: the buffers may be rewritten
+        out = [[None] * n_sc for _ in range(n_time)]
+        for k, (t, s) in enumerate(mine):
+            out[t][s] = recv[k]
+        return out
+
+    def close(self) -> None:
+        """Unmap the neighbours' buffers, then meet every rank, so no
+        buffer is freed while another rank maps it."""
+        if self.buf is None:
+            return
+        for base in self.opened.values():
+            _ipc(_lib().ipc_close(self.device.index, base), "ipc_close")
+        self.opened = {}
+        self._barrier()
+        self.buf = None

@@ -54,6 +54,12 @@ class MSequence:
         return out
 
 
+@functools.lru_cache(maxsize=64)
+def msequence_bits(m: int, g: int, a: int, n: int) -> Tuple[int, ...]:
+    """Cached first-n bits of the (m, g, a) m-sequence."""
+    return tuple(MSequence(m, g, a).generate_bits(n).tolist())
+
+
 def sequence_period(m: int, g: int, a: int = 1) -> int:
     """Actual period of the LFSR state sequence (2^m - 1 iff primitive)."""
     ms = MSequence(m, g, a)

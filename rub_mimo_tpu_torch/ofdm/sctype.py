@@ -71,6 +71,15 @@ def occupied_indices(p: np.ndarray) -> np.ndarray:
     return np.nonzero(p != SCTYPE_NULL)[0].astype(np.int32)
 
 
+def format_sctype(p: np.ndarray) -> str:
+    """The allocation as the reference prints it (framing.cc:1032-1051):
+    DC-centred, '.' null / '|' pilot / '+' data."""
+    M = len(p)
+    chars = {SCTYPE_NULL: ".", SCTYPE_PILOT: "|", SCTYPE_DATA: "+"}
+    rotated = (int(p[(i + M // 2) % M]) for i in range(M))
+    return "[" + "".join(chars[c] for c in rotated) + "]"
+
+
 def allocation(cfg) -> np.ndarray:
     """The config's allocation vector (ModemConfig.subcarrier_allocation)."""
     return init_default_sctype(

@@ -44,6 +44,17 @@ the payload on every shard.  Replicated results (sync, region, channel,
 weights) are kept on the mesh's home device, shard (0, 0)'s, where the
 decode returns them.
 
+On a mesh over several processes (parallel.mesh.init_distributed) each
+rank runs the stage bodies of its own shards and the collectives move
+values between ranks.  The time stages run on "sc" column 0 as above;
+the sc stages on a time row this rank holds (each rank holds whole
+rows), so the region, the matched filter, the LS estimate and the
+weights come out replicated on every rank; K8's halo crosses ranks
+through kernels.halo_dma.ProcessHalo (``pallas_dma``).  Stage C's rows
+are summed over the ranks (one owner each), so every rank returns the
+whole ShardedDecodeResult on its first shard's device.  The decoder's
+``close()`` (every rank at once) releases what ProcessHalo mapped.
+
 Host reads (each drains the stream on a GPU), as the JAX package's
 conds: the coarse stage's exactness flag (``need_full``; coarse stage A
 only), the region start (sync_index) and the payload start
@@ -98,17 +109,21 @@ class ShardedDecodeResult(NamedTuple):
 
 def _column(mesh: Mesh) -> Mesh:
     """The "sc" column 0 of the mesh: the shards of the time stages."""
-    return Mesh(mesh.devices[:, :1])
+    return mesh.sub(cols=slice(0, 1))
 
 
 def _row(mesh: Mesh) -> Mesh:
-    """The "time" row 0 of the mesh: the shards of the sc stages."""
-    return Mesh(mesh.devices[:1, :])
+    """The first "time" row this process holds (row 0 on one process):
+    the shards of the sc stages."""
+    t = mesh.local_shards()[0][0]
+    return mesh.sub(rows=slice(t, t + 1))
 
 
-def _home(parts):
-    """Shard (0, 0)'s copy of a replicated per-shard value."""
-    return parts[0][0]
+def _home(parts, mesh: Mesh):
+    """This process's copy of a replicated per-shard value (its first
+    shard's)."""
+    t, s = mesh.local_shards()[0]
+    return parts[t][s]
 
 
 def _per_block(mesh: Mesh, key, fn):
@@ -126,19 +141,25 @@ def _per_block(mesh: Mesh, key, fn):
 
 
 # --------------------------------------------------------------- stage A
-def stage_a_rows(blocks, mesh: Mesh, H: int, halo_impl: str) -> dict:
+def stage_a_rows(blocks, mesh: Mesh, H: int, halo_impl: str,
+                 exchange=None) -> dict:
     """Stage A's K6 input: per device, (the time shards ts it holds,
     [len(ts), S, H + Tloc] complex64), shard t's rows its left halo (the
-    last H samples of shard t - 1, zeros for t = 0) then blocks[t][0]."""
+    last H samples of shard t - 1, zeros for t = 0) then blocks[t][0].
+    ``exchange``: the halo_dma.ProcessHalo of a mesh over several ranks
+    (``pallas_dma``)."""
     n_time = mesh.shape["time"]
-    S, Tloc = blocks[0][0].shape
+    mine = [t for t, _ in mesh.local_shards()]
+    S, Tloc = blocks[mine[0]][0].shape
     tails = coll.for_each(mesh, lambda t, s: blocks[t][s][:, -H:])
-    if n_time > 1 and halo_impl == "pallas_dma":
+    if exchange is not None:
+        left = exchange(tails)
+    elif n_time > 1 and halo_impl == "pallas_dma":
         left = halo_dma.ring_shift_right(tails, mesh)
     else:
         left = coll.ppermute_right(tails, mesh)  # zeros when n_time == 1
     by_dev = {}
-    for t in range(n_time):
+    for t in mine:
         by_dev.setdefault(blocks[t][0].device, []).append(t)
     rows = {}
     for dev, ts in by_dev.items():
@@ -151,19 +172,22 @@ def stage_a_rows(blocks, mesh: Mesh, H: int, halo_impl: str) -> dict:
     return rows
 
 
-def _sync_stage(blocks, mesh: Mesh, cfg: ModemConfig, halo_impl: str):
+def _sync_stage(blocks, mesh: Mesh, cfg: ModemConfig, halo_impl: str,
+                exchange=None):
     """Full-rate per-shard sync over blocks[t][0] [S, Tloc]: (t*, run
     starts [S], fired, corr at t* [S], participating streams [S]),
     replicated (decode_sharded.py:87-161 of the JAX package)."""
     n_time = mesh.shape["time"]
-    S, Tloc = blocks[0][0].shape
+    t0 = mesh.local_shards()[0][0]
+    S, Tloc = blocks[t0][0].shape
     H = cfg.M - 1
 
     # the metric of every shard's [left | local] from K6, the shards of
     # one device stacked as rows of one launch (rows are independent)
     L = H + Tloc
     ext, metric = {}, {}
-    for ts, buf in stage_a_rows(blocks, mesh, H, halo_impl).values():
+    for ts, buf in stage_a_rows(blocks, mesh, H, halo_impl,
+                                exchange).values():
         m = k6.sc_metric_fused(buf.reshape(-1, L), cfg.M,
                                block=min(1 << 15, L)).reshape(len(ts), S, L)
         for i, t in enumerate(ts):
@@ -216,13 +240,13 @@ def _sync_stage(blocks, mesh: Mesh, cfg: ModemConfig, halo_impl: str):
     def elect(i, dtype):
         return _home(coll.psum(coll.for_each(
             mesh, lambda t, s: torch.where(win[t][s], f[t][s][i].to(dtype),
-                                           0)), mesh))
+                                           0)), mesh), mesh)
 
-    fired_any = _home(fired_any) > 0
+    fired_any = _home(fired_any, mesh) > 0
     starts = elect(2, torch.int64)
     pmask = torch.where(fired_any, elect(3, torch.int64) > 0, True)
     corr = elect(4, torch.complex64)
-    return _home(best_t), starts, fired_any, corr, pmask
+    return _home(best_t, mesh), starts, fired_any, corr, pmask
 
 
 def coarse_left_halo(cfg: ModemConfig) -> int:
@@ -373,19 +397,20 @@ def _coarse_sync_stage(blocks, mesh: Mesh, cfg: ModemConfig, T_total: int):
 
     def elect(i):
         return _home(coll.psum(coll.for_each(
-            mesh, lambda t, s: torch.where(win[t][s], r[t][s][i], 0)), mesh))
+            mesh, lambda t, s: torch.where(win[t][s], r[t][s][i], 0)), mesh),
+            mesh)
 
     need = coll.pmax(coll.for_each(mesh, lambda t, s: (
         (r[t][s][3] & win[t][s])
         | ((r[t][s][0] >= big) & (r[t][s][4] > K_CAND))).to(torch.int64)),
         mesh)
-    best_t = _home(best_t)
+    best_t = _home(best_t, mesh)
     fired = best_t < big
     starts = torch.where(fired, elect(1), 1)
     corr = torch.where(fired, elect(2), 0)
     best_t = torch.where(fired, best_t, BIG)
     ones = torch.ones((S,), dtype=torch.bool, device=best_t.device)
-    return _home(need) > 0, (best_t, starts, fired, corr, ones)
+    return _home(need, mesh) > 0, (best_t, starts, fired, corr, ones)
 
 
 # --------------------------------------------------- S0 xcorr fallback
@@ -410,7 +435,7 @@ def _xcorr_stage(blocks, mesh: Mesh, cfg: ModemConfig, T_total: int):
     best = coll.pmax(coll.for_each(mesh, lambda t, s: r[t][s][0]), mesh)
     idx = coll.pmin(coll.for_each(mesh, lambda t, s: torch.where(
         r[t][s][0] == best[t][s], r[t][s][1], BIG)), mesh)
-    return _home(best), _home(idx)
+    return _home(best, mesh), _home(idx, mesh)
 
 
 # ------------------------------------------------------- CFO derotation
@@ -457,7 +482,7 @@ def _mf_stage(region: torch.Tensor, row: Mesh, cfg: ModemConfig, joint: bool):
         tf, base = matched_filter.template_chunk(cfg, s * chunk, chunk, dev)
         return matched_filter.corr_vals(region.to(dev), cfg, tf, base)
 
-    g = _home(coll.all_gather(coll.for_each(row, one), row, "sc"))
+    g = _home(coll.all_gather(coll.for_each(row, one), row, "sc"), row)
     vals = g.transpose(0, 1).reshape(S, -1, sym)[:, :n_seq]
     mf = matched_filter.finalize(vals, cfg, joint=joint)
     return mf.s0_index, mf.ac_index
@@ -477,7 +502,7 @@ def _estimate_stage(region: torch.Tensor, ac_index: torch.Tensor, row: Mesh,
         return ls.code_ffts(region.to(dev),
                             off[s * chunk:(s + 1) * chunk].to(dev), cfg)
 
-    X = _home(coll.all_gather(coll.for_each(row, one), row, "sc"))
+    X = _home(coll.all_gather(coll.for_each(row, one), row, "sc"), row)
     X = X.reshape(codes_pad, S, S, M)[:codes]
     G = ls.channel_from_ffts(X, cfg)
     nv = (ls.noise_var_from_ffts(X, G, cfg) if need_nv
@@ -558,11 +583,14 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
     applies) or "pallas_dma" (K8 for the full-rate stage A's halo, which
     it then always takes, as in the JAX package; every shard on one
     device, or every shard on CUDA devices: one launch per card, reading
-    across cards by peer access).  input_format: "complex" takes the
+    across cards by peer access; on a mesh over several ranks, each
+    rank's shards on one CUDA device, one launch a rank through
+    halo_dma.ProcessHalo).  input_format: "complex" takes the
     blocks of shard_capture, "planes" the (re, im) blocks of
     shard_capture_planes.  Returns
     ``fn(blocks)`` or ``fn(re_blocks, im_blocks)`` -> ShardedDecodeResult
-    on the mesh's home device."""
+    on the mesh's home device; ``fn.close()`` releases the cross-process
+    halo's mappings (every rank at once)."""
     check_config(cfg, "build_sharded_decoder")
     S, M, sym = cfg.num_streams, cfg.M, cfg.symbol_len
     n_time, n_sc = mesh.shape["time"], mesh.shape["sc"]
@@ -576,12 +604,17 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
         raise ValueError(f"unknown input_format {input_format!r}")
     devices = set(mesh.devices.flat)
     on_cuda = all(d.type == "cuda" for d in devices)
-    if (halo_impl == "pallas_dma" and n_time > 1 and len(devices) > 1
+    # shards held by different ranks are never on one device
+    places = {(mesh.rank_of(t, s), mesh.devices[t, s])
+              for t in range(n_time) for s in range(n_sc)}
+    if (halo_impl == "pallas_dma" and n_time > 1 and len(places) > 1
             and not on_cuda):
+        where = sorted(f"rank {r} {d}" if mesh.spans_processes else str(d)
+                       for r, d in places)
         raise ValueError("halo_impl='pallas_dma' needs every shard on one "
                          "device or every shard on CUDA devices (K8 pulls "
-                         "a neighbour's halo from its card by peer access); "
-                         f"the mesh spans {sorted(map(str, devices))}")
+                         "a neighbour's halo from its card by peer access "
+                         f"or by IPC handle); the mesh spans {where}")
     if on_cuda:  # full float32 products, as make_decoder sets them
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -605,13 +638,16 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
     )
     col, row = _column(mesh), _row(mesh)
     home = mesh.home
+    exchange = None
+    if halo_impl == "pallas_dma" and n_time > 1 and col.spans_processes:
+        exchange = halo_dma.ProcessHalo(col, S, M - 1)
 
     def stage_a(blocks):
         if coarse_ok:
             need_full, out = _coarse_sync_stage(blocks, col, cfg, T)
             if not bool(need_full):
                 return out
-        return _sync_stage(blocks, col, cfg, halo_impl)
+        return _sync_stage(blocks, col, cfg, halo_impl, exchange)
 
     def derotate(blocks, eps, ref):
         return _per_block(mesh, lambda t, s: (t, id(blocks[t][s])),
@@ -621,7 +657,7 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
     def run(blocks) -> ShardedDecodeResult:
         for r in blocks:
             for b in r:
-                if tuple(b.shape) != (S, Tloc):
+                if b is not None and tuple(b.shape) != (S, Tloc):
                     raise ValueError(f"shards must be [{S}, {Tloc}], got "
                                      f"{tuple(b.shape)}")
         first = [[blocks[t][0]] for t in range(n_time)]
@@ -648,7 +684,7 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
         rstart = int(sync_index) - sym  # host read: the region start
         region = _home(coll.psum(coll.for_each(
             col, lambda t, s: _region_stage(first[t][s], t, rstart,
-                                            region_len)), col))
+                                            region_len)), col), col)
         s0_idx, ac_idx = _mf_stage(region, row, cfg, joint)
         cfo_total = cfo0
         if cfg.correct_cfo:
@@ -685,16 +721,21 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
         else:
             grid = torch.zeros((pid, S, m_occ), dtype=torch.complex64,
                                device=home)
-        for prow in parts:
-            for k, n, y, d in prow:
-                if n == 0:
-                    continue
+        for part in (p for prow in parts for p in prow if p is not None):
+            k, n, y, d = part
+            if n:
                 rows = slice(k, k + n * n_sc, n_sc)
                 if fused:
                     sig[:, rows] = y.to(home)
                     data[:, rows] = d.to(home)
                 else:
                     grid[rows] = y.to(home)
+        # each symbol has one owner: the other ranks' rows are zeros here
+        if fused:
+            sig = coll.sum_processes(sig, mesh)
+            data = coll.sum_processes(data, mesh)
+        else:
+            grid = coll.sum_processes(grid, mesh)
         if not fused:
             if cfg.mode == CommMode.ALAMOUTI:
                 eq = torch.zeros_like(grid)
@@ -714,7 +755,12 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
             cfo_hat=cfo_total, G=G, decode_start=decode_start,
             rx_sig=rx_sig, rx_data=rx_data)
 
+    def close() -> None:
+        if exchange is not None:
+            exchange.close()
+
     if input_format == "complex":
+        run.close, run.exchange = close, exchange
         return run
 
     def run_planes(re_blocks, im_blocks) -> ShardedDecodeResult:
@@ -722,4 +768,5 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
             mesh, lambda t, s: (id(re_blocks[t][s]), id(im_blocks[t][s])),
             lambda t, s: torch.complex(re_blocks[t][s], im_blocks[t][s])))
 
+    run_planes.close, run_planes.exchange = close, exchange
     return run_planes

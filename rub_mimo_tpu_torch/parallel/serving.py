@@ -21,6 +21,9 @@ from rub_mimo_tpu_torch.pipeline import rx
 def _axis_devices(mesh: Mesh, axis: str):
     if axis not in mesh.shape:
         raise ValueError(f"unknown mesh axis {axis!r}")
+    if mesh.spans_processes:
+        raise ValueError("batched serving runs on one controller: the mesh "
+                         "spans processes")
     return list(mesh.devices[:, 0] if axis == "time" else mesh.devices[0, :])
 
 

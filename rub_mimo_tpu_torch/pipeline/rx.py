@@ -51,6 +51,7 @@ decodes the bursts of one long capture one after another.
 from __future__ import annotations
 
 import functools
+import gc
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -483,8 +484,19 @@ class CapturedDecode:
                     fn(*self.inputs)
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.outputs = fn(*self.inputs)
+            # an unreachable graph (an earlier serving decoder's, held in
+            # a reference cycle) destroyed by the garbage collector during
+            # this capture would invalidate it: collect first, and hold
+            # the collector off until the capture ends
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.outputs = fn(*self.inputs)
+            finally:
+                if collecting:
+                    gc.enable()
 
     def replay(self, *captures) -> DecodeResult:
         """Copy ``captures`` into the static inputs and replay: the

@@ -1634,3 +1634,100 @@ def test_cli_run_on_card(capsys, tmp_path):
     _, data = checkpoint.resume_decode(cap, ckpt, device="cuda")
     assert data.device.type == "cuda"
     np.testing.assert_array_equal(n(data), ckpt.rx_data)
+
+
+# ---------------------------------------------------------------- K8 across
+# processes: two ranks on one card under gloo (the one-card machine runs the
+# same IPC path as four cards)
+def test_sharded_decode_across_processes_on_one_card(tmp_path):
+    """Two gloo ranks of two time shards each on cuda:0, tiny_config's
+    (4, 1) and (2, 2) meshes, ``pallas_dma`` and ``ppermute``: each rank
+    equal to the single decode with SER 0; under pallas_dma K8 launched
+    once a rank a decode, pulling its first shard's halo through the other
+    rank's IPC-mapped buffer bit for bit against its plain version."""
+    require_cuda()
+    from rub_mimo_tpu_torch.parallel import multiprocess as mp
+
+    recs = mp.launch(2, 2, device="cuda:0", backend="gloo",
+                     init_method=f"file://{tmp_path}/store",
+                     halo_impl=("pallas_dma", "ppermute"), config="tiny",
+                     meshes=((4, 1), (2, 2)), timeout=180.0)
+    assert len(recs) == 8
+    for r in recs:
+        assert r["equal_to_single"] and r["ser_percent"] == [0.0, 0.0], r
+        k8_launches = r["launches"]["ring_shift_right"]
+        if r["halo_impl"] == "pallas_dma":
+            assert k8_launches == 1 and r["launches"]["sc_metric"] == 1, r
+            assert r["k8"]["bit_equal"] and r["k8"]["max_abs_err"] == 0.0
+        else:
+            assert k8_launches == 0, r
+
+
+IPC_ROUND_TRIP = r'''
+import ctypes, sys
+import torch
+import torch.distributed as dist
+from rub_mimo_tpu_torch.kernels import halo_dma as k8
+
+rank, store = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                        world_size=2)
+lib = k8._lib()
+S, H = 2, 2047
+vals = torch.randn((S, H), dtype=torch.complex64,
+                   generator=torch.Generator().manual_seed(3))
+info = [None]
+if rank == 0:
+    big = torch.zeros((5, S, H), dtype=torch.complex64, device="cuda")
+    big[3] = vals.cuda()
+    torch.cuda.synchronize()
+    h, off = ctypes.create_string_buffer(64), ctypes.c_longlong()
+    assert lib.ipc_export(0, big[3].data_ptr(), h, ctypes.byref(off)) == 0
+    assert off.value >= 3 * S * H * 8  # a view's offset in its block
+    info = [(h.raw, off.value)]
+dist.broadcast_object_list(info, src=0)
+if rank == 1:
+    base = ctypes.c_void_p()
+    assert lib.ipc_open(0, info[0][0], ctypes.byref(base)) == 0
+    out = torch.full((1, S, H), 7.0, dtype=torch.complex64, device="cuda")
+    p = k8._Params()
+    p.src[0] = base.value + info[0][1]
+    p.dst[0] = out[0].data_ptr()
+    p.src_row_stride, p.rows, p.len, p.n_dst = H, S, H, 1
+    assert lib.ring_shift_right(ctypes.byref(p),
+                                torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[0].cpu(), vals)
+    assert lib.ipc_close(0, base.value) == 0
+dist.barrier()  # the mapping is closed before rank 0 frees the block
+dist.destroy_process_group()
+print("ok")
+'''
+
+
+def test_ipc_export_open_close_round_trip(tmp_path):
+    """csrc/halo_dma.cu's ipc_export / ipc_open / ipc_close between two
+    processes on cuda:0: a view into a larger block is exported with its
+    offset, mapped by the other process, pulled by K8 bit for bit and
+    unmapped before the exporter frees it."""
+    require_cuda()
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", IPC_ROUND_TRIP, str(r), str(tmp_path / "s")],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err
+        assert out.strip().endswith("ok")

@@ -211,6 +211,9 @@ def test_decode_runs_with_jax_unimportable():
         "from rub_mimo_tpu_torch.pipeline import artifacts, checkpoint\n"
         "from rub_mimo_tpu_torch.ofdm import liquid_tables\n"
         "from rub_mimo_tpu_torch.utils import profiling\n"
+        "from rub_mimo_tpu_torch.apps import analyze, live_view, report_html\n"
+        "from rub_mimo_tpu_torch.io import devices\n"
+        "from rub_mimo_tpu_torch.parallel import multiprocess\n"
         "assert cli.main(['run', '--cpu', '--num_subcarriers', '64',\n"
         "                 '--cp_len', '16', '--num_access_codes', '4',\n"
         "                 '--frames', '8', '--modulation', 'qpsk',\n"
