@@ -8,7 +8,7 @@ Builds the port's CUDA kernels from the sources in this checkout (K1 the
 strip-fused payload tail, K2 the fused payload tail, K3 equalize +
 demap, K4 the hard demap, K5 the one-pass sync, K6 the S&C metric, K7
 the CP strip, K8 the halo exchange, the Viterbi decoder and the soft
-LLRs; one nvcc per source, all at once)
+LLRs with their rows; one nvcc per source, all at once)
 and holds each against its plain PyTorch version: K1 and K2 on seeded
 random payloads (the operating point, one frame per block, M = 64 and
 4096, an odd CP with an unaligned plane, 3 and 4 streams, 2 to 64
@@ -77,22 +77,34 @@ device's busy time and idle share over the stream.
 It runs the coded chain (ofdm.fec) at the operating point: a payload of
 encode_payload(seed=42) at rates 1/2, 2/3 and 3/4 through the port's TX
 and channel, the default planes decode (K1) and decode_payload (the
-soft-LLR kernel, csrc/soft_llr.cu, and the Viterbi kernel,
+soft-LLR rows kernel, csrc/soft_llr.cu's soft_llr_rows_kernel: the LLRs
+written straight into the Viterbi's window rows, and the Viterbi kernel,
 csrc/viterbi.cu, neither with a TPU counterpart: they replace the JAX
-package's XLA ops and lax.scan pair; one launch each a decode), BER 0 on
-both lanes; the back end's stages (LLRs, deinterleave and depuncture,
-Viterbi, whole) timed; encode_data / decode_data of a full payload of
-seeded bytes (CRC and bytes exact); decode_payload_ml on the ML QPSK
-config (BER 0).  The soft-LLR kernel is held value for value against
-soft_llr_plain on the operating point's rx_sig and on seeded symbols of
-every modulation (an odd count and one symbol, NaN, +-Inf and 1e30
-rows), noise_var a number and a device tensor.  The Viterbi kernel is
-held bit for bit against viterbi_plain on the operating point's 2,500
-windows, a 16,390-step codeword, seeded rows with exact ties and +-1e4
-pads, all-zero rows, and row counts that leave a warp's lane groups part
-empty (1, 2, 3, 5, 37 rows; 1, 31, 33 steps); it is timed there, beside
-the previous kernel's time quoted (VITERBI_BEFORE_QUOTED).  decode_with_sfo runs
-on the full-geometry SFO case (pid_max=64) at 20 and 100 ppm
+package's XLA ops and lax.scan pair; one launch each a decode, and at
+rate 1/2 torch.profiler's kernels a call are the two and at most one
+copy of the decoded bits, nothing else), BER 0 on both lanes; the back
+end's stages (the parent's three: LLRs, deinterleave and depuncture, the
+rows' pads and windows; then the rows kernel, the Viterbi on its rows,
+the whole back end, and the back end's peak memory beside the old
+chain's) timed; encode_data / decode_data of a full payload of seeded
+bytes (CRC and bytes exact); decode_payload_ml on the ML QPSK config
+(the rows kernel's LLR-input instance, BER 0); soft_demodulate_llr (the
+soft_llr kernel: the same source with the identity geometry).  The rows
+kernel is held value for value against soft_llr_rows_plain on the
+operating point's rx_sig at the three rates, on its LLRs (the LLR-input
+instance) and on seeded symbols of every modulation with NaN, +-Inf and
+1e30 rows, interleaved or not, one row or windows of 4096, noise_var a
+number, a device tensor and 0.  The soft-LLR kernel is held value for
+value against soft_llr_plain on the operating point's rx_sig and on
+seeded symbols of every modulation (an odd count and one symbol, NaN,
++-Inf and 1e30 rows), noise_var a number and a device tensor.  The
+Viterbi kernel is held bit for bit against viterbi_plain on the
+operating point's 2,500 windows, a 16,390-step codeword, seeded rows
+with exact ties and +-1e4 pads, all-zero rows, and row counts that
+leave a warp's lane groups part empty (1, 2, 3, 5, 37 rows; 1, 31, 33
+steps); it is timed there, beside the previous kernel's time quoted
+(VITERBI_BEFORE_QUOTED).  decode_with_sfo runs on the full-geometry SFO
+case (pid_max=64) at 20 and 100 ppm
 (|ppm_hat - ppm| < 0.1 ppm + 2, SER < 0.005) and at the operating point
 at 20 ppm (printed); the streaming decoder's live SFO correction on
 tests/test_sfo_streaming.py's three-burst 100 ppm capture (its
@@ -217,6 +229,10 @@ KERNELS = {
     # no TPU kernel: the JAX package's soft LLRs are XLA ops
     "soft_llr": ("soft_llr", "soft_llr", "soft_llr",
                  "rub_mimo_tpu/ofdm/constellation.py:222"),
+    # no TPU kernel: the same LLRs, then _decode_from_llrs's deinterleave,
+    # depuncture and viterbi_decode's window pads, all XLA ops
+    "soft_llr_rows": ("soft_llr", "soft_llr_rows", "soft_llr",
+                      "rub_mimo_tpu/ofdm/fec.py:501"),
 }
 SHARDED_G_RTOL, SHARDED_G_ATOL = 2e-4, 2e-5  # tests/test_parallel.py
 # K6's device ms before its redesign as a persistent span scan, quoted in
@@ -261,6 +277,7 @@ DEVICE_KERNELS = {
     "ring_shift_right": ("ring_shift_right_kernel",),
     "viterbi": ("viterbi_kernel",),
     "soft_llr": ("soft_llr_kernel",),
+    "soft_llr_rows": ("soft_llr_rows_kernel",),
 }
 
 
@@ -1484,13 +1501,19 @@ def stage_busy(fn, iters: int = CODED_ITERS) -> dict:
 def coded_phase(dev, card, cfg) -> dict:
     """The coded chain at the operating point: encode_payload(seed=42) at
     each rate, the port's TX and channel, the default planes decode (K1)
-    and decode_payload (the Viterbi kernel), BER 0 on both lanes; the back
-    end's stages timed; encode_data / decode_data of a full payload of
-    seeded bytes; decode_payload_ml on the ML QPSK config.  Returns the
-    main path's counts and the Viterbi kernel's rows for the kernel
-    check."""
+    and decode_payload (the soft-LLR rows kernel and the Viterbi kernel),
+    BER 0 on both lanes; at rate 1/2 the back end's kernels a call by
+    name (the rows kernel, the Viterbi, at most one copy of the decoded
+    bits);
+    the back end's stages timed, the parent's three beside the rows
+    kernel; encode_data / decode_data of a full payload of seeded bytes;
+    decode_payload_ml on the ML QPSK config; soft_demodulate_llr.  Returns
+    the main path's counts, soft_demodulate_llr's, the decode's rx_sig
+    and the Viterbi kernel's rows for the kernel checks."""
     from rub_mimo_tpu_torch import Detector, ModemConfig, Modulation
     from rub_mimo_tpu_torch.io import simulator
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+    from rub_mimo_tpu_torch.kernels import viterbi as kv
     from rub_mimo_tpu_torch.ofdm import constellation, fec
     from rub_mimo_tpu_torch.pipeline import rx
 
@@ -1521,18 +1544,44 @@ def coded_phase(dev, card, cfg) -> dict:
               "launches": {k: v for k, v in counts.items() if v},
               "encode_payload_host_s": encode_s})
         require(counts["payload_fused_strip"] == 1
-                and counts["soft_llr"] == 1 and counts["viterbi"] == 1,
+                and counts["soft_llr_rows"] == 1 and counts["viterbi"] == 1
+                and counts["soft_llr"] == 0,
                 f"coded {rate}: launches {counts}")
         require(all(b == 0.0 for b in ber), f"coded {rate}: BER {ber}")
         if rate == "1/2":
             main_counts, r_half, msg_half = counts, r, msg
         del planes
 
-    # the back end's stages at rate 1/2, on the decode's rx_sig
+    # the back end at rate 1/2 on the decode's rx_sig: its kernels a call
+    # by name (torch.profiler; rounded, as graph_launches rounds, since a
+    # profile may lose an event or two at its edges), the only ones: the
+    # rows kernel, the Viterbi, and at most one elementwise copy of the
+    # decoded bits (the windows' interiors, which reads the Viterbi's
+    # output); no index, gather, pad or fill kernel, so none reads or
+    # writes the LLRs but the first two
     sig = r_half.rx_sig
+    by_name = {k: round(v) for k, v in device_busy(
+        lambda: fec.decode_payload(sig, cfg), n=5)[
+            "launches_by_name"].items()}
+    ours = {k: v for k, v in by_name.items()
+            if k.split("<")[0] in ("soft_llr_rows_kernel", "viterbi_kernel")}
+    others = {k: v for k, v in by_name.items() if k not in ours}
+    emit({"phase": "coded_kernels", "card": card, "rate": "1/2",
+          "launches_by_name": by_name})
+    require(sorted((k.split("<")[0], v) for k, v in ours.items())
+            == [("soft_llr_rows_kernel", 1), ("viterbi_kernel", 1)]
+            and sum(others.values()) <= 1
+            and all("elementwise" in k for k in others),
+            f"coded 1/2: the back end's kernels {by_name}")
+
+    # the back end's stages at rate 1/2: the parent's three (the LLRs, the
+    # deinterleave and depuncture gathers, viterbi_rows' pads and window
+    # copies), then the rows kernel and the Viterbi on its rows
     n_msg = fec.message_bits_per_stream(cfg)
     used = 2 * (n_msg + fec.TAIL)
     S = cfg.num_streams
+    tab = constellation.table(cfg.modulation)
+    plan = fec.row_plan(sig.shape[1] * cfg.modulation.bits_per_symbol, cfg)
 
     def llrs():
         return constellation.soft_demodulate_llr(sig, cfg.modulation, 1.0)
@@ -1545,22 +1594,41 @@ def coded_phase(dev, card, cfg) -> dict:
                                    "1/2")
 
     dep = deinterleave()
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    llrs()
-    torch.cuda.synchronize()
-    llr_peak = torch.cuda.max_memory_allocated() - base
+    rows = ks.soft_llr_rows(sig, plan, tab, 1.0)
+
+    def old_chain():
+        x = fec.deinterleave(llrs().reshape(S, -1), fec.INTERLEAVE_SPREAD)
+        return fec.viterbi_decode(fec.depuncture_llrs(
+            x[:, :fec._kept_bits(used, "1/2")], used, "1/2"), window=4096)
+
+    peak = {}
+    for name, fn in (("back_end", lambda: fec.decode_payload(sig, cfg)),
+                     ("parent_chain", old_chain)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+    require(torch.equal(old_chain(), fec.decode_payload(sig, cfg)),
+            "coded 1/2: the back end differs from the parent's chain")
     stages = {
         "llr": stage_busy(llrs),
         "deinterleave_depuncture": stage_busy(deinterleave),
-        "viterbi": stage_busy(lambda: fec.viterbi_decode(dep, window=4096)),
+        "viterbi_rows_pad_unfold": stage_busy(
+            lambda: fec.viterbi_rows(dep, window=4096)),
+        "soft_llr_rows": stage_busy(
+            lambda: ks.soft_llr_rows(sig, plan, tab, 1.0)),
+        "viterbi_on_rows": stage_busy(lambda: kv.viterbi(*rows)),
+        "parent_chain": stage_busy(old_chain),
         "back_end": stage_busy(lambda: fec.decode_payload(sig, cfg)),
     }
     emit({"phase": "coded_stages", "card": card, "rate": "1/2",
           "symbols": list(sig.shape), "coded_llrs": list(lv.shape),
-          "iters": CODED_ITERS, "llr_peak_bytes": llr_peak,
-          "llr_chunk": constellation.LLR_CHUNK, **stages})
+          "rows": list(rows[0].shape), "iters": CODED_ITERS,
+          "peak_bytes": peak, "llr_chunk": constellation.LLR_CHUNK,
+          **stages})
+    del lv, dep
 
     # real bytes: a full payload of seeded bytes
     data = np.random.default_rng(42).integers(
@@ -1571,8 +1639,8 @@ def coded_phase(dev, card, cfg) -> dict:
           "crc_ok": bool(ok), "exact": got == data,
           "launches": {k: v for k, v in counts.items() if v}})
     require(ok and got == data, "decode_data: CRC or bytes differ")
-    require(counts["soft_llr"] == 1 and counts["viterbi"] == 1,
-            f"decode_data launches {counts}")
+    require(counts["soft_llr_rows"] == 1 and counts["viterbi"] == 1
+            and counts["soft_llr"] == 0, f"decode_data launches {counts}")
     del planes
 
     # joint soft-output ML on the ML QPSK config
@@ -1588,11 +1656,20 @@ def coded_phase(dev, card, cfg) -> dict:
     emit({"phase": "coded_ml", "card": card, "msg_bits": list(msg.shape),
           "ber": ber, "launches": {k: v for k, v in counts.items() if v},
           "decode_and_ml_back_end_ms": t_ml["median_ms"]})
-    require(counts["viterbi"] == 1 and counts["demap"] >= 1,
+    require(counts["viterbi"] == 1 and counts["demap"] >= 1
+            and counts["soft_llr_rows"] == 1,
             f"coded ML launches {counts}")
     require(all(b == 0.0 for b in ber), f"coded ML: BER {ber}")
-    return {"counts": main_counts, "sig": sig,
-            "rows": fec.viterbi_rows(dep, window=4096)}
+
+    # the LLRs alone in wire order: the same source, the identity geometry
+    _, llr_counts = drive(lambda: constellation.soft_demodulate_llr(
+        sig, cfg.modulation, 1.0))
+    emit({"phase": "soft_demodulate_llr", "card": card,
+          "launches": {k: v for k, v in llr_counts.items() if v}})
+    require(llr_counts["soft_llr"] == 1, f"soft_demodulate_llr launches "
+            f"{llr_counts}")
+    return {"counts": main_counts, "llr_counts": llr_counts, "sig": sig,
+            "rows": rows}
 
 
 def viterbi_check(dev, card, rows) -> dict:
@@ -1680,11 +1757,35 @@ def same_llrs(a: torch.Tensor, b: torch.Tensor) -> dict:
             "nan": int(torch.isnan(b).sum())}
 
 
+def magnitude_symbols(tab: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """n symbols of log-uniform magnitude 2^-20 to 2^20 (inside the soft-LLR
+    kernel's fast range, 2^-16 to 2^16, and past it on both sides), an
+    eighth real-valued and an eighth imaginary, then the points, the
+    midpoints of neighbours and the points moved by 2^-30 to 2^-8
+    (tests/test_torch_cuda.py's)."""
+    rng = np.random.default_rng(seed)
+    y = (2.0 ** rng.uniform(-20, 20, n)
+         * np.exp(2j * np.pi * rng.uniform(size=n))).astype(np.complex64)
+    y[: n // 8] = y[: n // 8].real
+    y[n // 8: n // 4] = 1j * y[n // 8: n // 4].imag
+    k = len(tab)
+    y[n // 4: n // 4 + k] = tab
+    y[n // 4 + k: n // 4 + 2 * k - 1] = (tab[1:] + tab[:-1]) / 2
+    m = n // 4 + 2 * k
+    near = tab[rng.integers(0, k, 4096)] + (
+        2.0 ** rng.uniform(-30, -8, 4096)
+        * np.exp(2j * np.pi * rng.uniform(size=4096)))
+    y[m: m + 4096] = near.astype(np.complex64)
+    return y
+
+
 def soft_llr_check(dev, card, sig, cfg) -> dict:
     """The soft-LLR kernel against soft_llr_plain, value for value (NaN
     where it is NaN): the operating point's rx_sig (ARB32OPT); seeded
     symbols for BPSK, QPSK, 16-QAM, 64-QAM and QAM256 at an odd count and
-    at one symbol, each with NaN, +-Inf and 1e30 rows; noise_var as a
+    at one symbol, each with NaN, +-Inf and 1e30 rows; 2^20 symbols of
+    magnitudes 2^-20 to 2^20 for BPSK, ARB32OPT and QAM256
+    (magnitude_symbols: the fast path and the rare path); noise_var as a
     number and as a device tensor.  Times the kernel and the plain
     version on the rx_sig.  Returns its row of the kernels line."""
     from rub_mimo_tpu_torch import Modulation
@@ -1705,6 +1806,12 @@ def soft_llr_check(dev, card, sig, cfg) -> dict:
                          complex(np.inf, np.nan), complex(0.0, -np.inf),
                          t[-1]]
             cases[f"{mod.name}_{n}"] = (torch.as_tensor(y, device=dev), t)
+    # magnitudes 2^-20 to 2^20, a coordinate 0, on the points, ties, 2^-30
+    # to 2^-8 off the points: the fast path (no hypotf) and the rare path
+    for mod in (Modulation.BPSK, Modulation.ARB32OPT, Modulation.QAM256):
+        t = constellation.table(mod)
+        cases[f"{mod.name}_magnitudes"] = (torch.as_tensor(
+            magnitude_symbols(t, 1 << 20, len(t) + 17), device=dev), t)
     out = {}
     for name, (y, t) in cases.items():
         for nv_name, nv in (("0.37", 0.37), ("1.0", 1.0),
@@ -1724,6 +1831,92 @@ def soft_llr_check(dev, card, sig, cfg) -> dict:
                       warmup=1)
     b = llr_bound(sig.numel(), bits)
     emit({"phase": "soft_llr_vs_plain", "card": card, "cases": out,
+          "kernel_busy_ms": busy, "kernel_event_ms": t_k["median_ms"],
+          "plain_ms": t_plain["median_ms"], **b})
+    return {"max_abs_err": max(v["max_abs_err"] for v in out.values()),
+            "ms": busy if busy is not None else t_k["median_ms"],
+            "timer": "profiler" if busy is not None else "cuda_events",
+            "event_ms": t_k["median_ms"], "plain_ms": t_plain["median_ms"],
+            "bound": b, "cases": out}
+
+
+def rows_bound(n_sym: int, bits: int, rows: torch.Tensor) -> dict:
+    """The rows kernel's two bounds: the symbols read once and the rows
+    written once over the memory rate, and the LLRs' float32 operations
+    (llr_bound's, each symbol once) over the peak rate."""
+    ops = llr_bound(n_sym, bits)["flops"]
+    b = bound(n_sym * 8 + nbytes(rows), ops)
+    return {**b, "bytes_bound_ms": b["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "operations_bound_ms": ops / FP32_FLOPS * 1e3}
+
+
+def soft_llr_rows_check(dev, card, sig, cfg) -> dict:
+    """The soft-LLR rows kernel against soft_llr_rows_plain, value for
+    value (NaN where it is NaN): the operating point's rx_sig at rates
+    1/2, 2/3 and 3/4 (the decode's plans: interleaved, windows of 4096),
+    noise_var 1.0 and a device tensor, and its LLRs through the LLR-input
+    instance; seeded symbols of every modulation, 2 lanes of 20,001 with
+    NaN, +-Inf and 1e30 rows, interleaved or not, one row (several tiles)
+    or windows of 4096, noise_var a number, a device tensor and 0 (the
+    per-point path).  Times the kernel and the plain version on the
+    rate-1/2 rows.  Returns its row of the kernels line."""
+    from rub_mimo_tpu_torch import Modulation
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+    from rub_mimo_tpu_torch.ofdm import constellation, fec
+
+    tab = constellation.table(cfg.modulation)
+    n = sig.shape[1] * cfg.modulation.bits_per_symbol
+    cases = {}
+    for rate in CODED_RATES:
+        cases[f"operating_point_{rate}"] = (sig, tab, fec.row_plan(
+            n, cfg, rate), (1.0, torch.tensor(1.0, device=dev)))
+    cases["operating_point_llrs"] = (
+        ks.soft_llr_plain(sig, tab, 1.0).reshape(sig.shape[0], -1), None,
+        fec.row_plan(n, cfg), (1.0,))
+    for mod in (Modulation.BPSK, Modulation.QPSK, Modulation.QAM16,
+                Modulation.ARB32OPT, Modulation.QAM64, Modulation.QAM256):
+        t = constellation.table(mod)
+        rng = np.random.default_rng(20_001 + len(t))
+        y = ((rng.standard_normal((2, 20_001))
+              + 1j * rng.standard_normal((2, 20_001))) * 0.8
+             ).astype(np.complex64)
+        y[0, :8] = [np.nan, np.inf, -np.inf, 1e30, -1e30,
+                    complex(np.inf, np.nan), complex(0.0, -np.inf), t[-1]]
+        m = 20_001 * mod.bits_per_symbol
+        for rate, stride, window in (
+                ("1/2", fec.interleave_stride(m, 127), 4096),
+                ("2/3", 1, None), ("3/4", fec.interleave_stride(m, 127),
+                                   None), ("3/4", 1, 4096)):
+            used = 2 * (m // 2)
+            while fec._kept_bits(used, rate) > m:
+                used -= 2
+            cases[f"{mod.name}_{rate}_s{stride}_w{window}"] = (
+                torch.as_tensor(y, device=dev), t,
+                ks.RowPlan(used=used, rate=rate, stride=stride,
+                           window=window),
+                (0.37, torch.tensor(0.37, device=dev), 0.0))
+    out = {}
+    for name, (x, t, plan, nvs) in cases.items():
+        for nv in nvs:
+            got = ks.soft_llr_rows(x, plan, t, nv)
+            want = ks.soft_llr_rows_plain(x, plan, t, nv)
+            torch.cuda.synchronize()
+            r = same_llrs(got[0], want[0])
+            key = f"{name}/{'tensor' if isinstance(nv, torch.Tensor) else nv}"
+            out[key] = {"input": list(x.shape), "rows": list(got[0].shape),
+                        "pinned_equal": bool(torch.equal(got[1], want[1])),
+                        **r}
+            require(r["differing"] == 0 and out[key]["pinned_equal"],
+                    f"soft_llr_rows {key}: {out[key]}")
+    plan = fec.row_plan(n, cfg)
+    rows = ks.soft_llr_rows(sig, plan, tab, 1.0)[0]
+    busy = device_busy(lambda: ks.soft_llr_rows(sig, plan, tab, 1.0),
+                       n=10)["busy_ms"]
+    t_k = cuda_ms(lambda: ks.soft_llr_rows(sig, plan, tab, 1.0), iters=10)
+    t_plain = cuda_ms(lambda: ks.soft_llr_rows_plain(sig, plan, tab, 1.0),
+                      iters=3, warmup=1)
+    b = rows_bound(sig.numel(), cfg.modulation.bits_per_symbol, rows)
+    emit({"phase": "soft_llr_rows_vs_plain", "card": card, "cases": out,
           "kernel_busy_ms": busy, "kernel_event_ms": t_k["median_ms"],
           "plain_ms": t_plain["median_ms"], **b})
     return {"max_abs_err": max(v["max_abs_err"] for v in out.values()),
@@ -2172,8 +2365,8 @@ def cli_cases(dev, card, cfg, tmp: Path) -> dict:
               "rc": rc, "ber_percent": bers,
               "launches": {k: v for k, v in counts.items() if v}})
         require(rc == 0 and bers == [0.0, 0.0], f"fec {rate} BER {bers}")
-        require(counts["viterbi"] == 1 and counts["soft_llr"] == 1,
-                f"fec {rate}: {counts}")
+        require(counts["viterbi"] == 1 and counts["soft_llr_rows"] == 1
+                and counts["soft_llr"] == 0, f"fec {rate}: {counts}")
 
     # a seeded 64 KB file, recovered exact
     src, dst = tmp / "file.bin", tmp / "file.out"
@@ -3375,6 +3568,7 @@ def main() -> None:
     # ---- phase 13: the coded chain, the LLR and Viterbi kernels, SFO ----
     coded = coded_phase(dev, card, cfg)
     llr = soft_llr_check(dev, card, coded["sig"], cfg)
+    llr_rows = soft_llr_rows_check(dev, card, coded["sig"], cfg)
     vit = viterbi_check(dev, card, coded["rows"])
     del coded["rows"], coded["sig"]
     sfo_phase(dev, card)
@@ -3420,6 +3614,7 @@ def main() -> None:
             nbytes(op_stack[:-1], op_stack), 0.0),
         "viterbi": vit["bound"],
         "soft_llr": llr["bound"],
+        "soft_llr_rows": llr_rows["bound"],
     }
     launched = {
         "payload_fused_strip": launches,
@@ -3431,7 +3626,8 @@ def main() -> None:
         "cp_strip": impl_counts["fused"]["cp_strip"],
         "ring_shift_right": shard_counts["pallas_dma_4x1"]["ring_shift_right"],
         "viterbi": coded["counts"]["viterbi"],
-        "soft_llr": coded["counts"]["soft_llr"],
+        "soft_llr": coded["llr_counts"]["soft_llr"],
+        "soft_llr_rows": coded["counts"]["soft_llr_rows"],
     }
     errors = {
         "payload_fused_strip": main_cmp["max_abs_err"],
@@ -3444,6 +3640,7 @@ def main() -> None:
         "ring_shift_right": k8_err,
         "viterbi": vit["max_abs_err"],
         "soft_llr": llr["max_abs_err"],
+        "soft_llr_rows": llr_rows["max_abs_err"],
     }
     no_fire_bound = bound(nbytes(no_fire), 18.0 * no_fire.numel())
     # K4's integer decisions: its mismatches and their largest top-2 margin
@@ -3521,15 +3718,32 @@ def main() -> None:
                  "cases": vit["cases"]},
              "soft_llr": {
                  "tpu_kernel": None,
-                 "note": "replaces the JAX package's XLA ops",
+                 "note": "replaces the JAX package's XLA ops; the rows "
+                         "kernel's source with the identity geometry",
                  "timer": llr["timer"],
                  "event_ms": llr["event_ms"],
+                 "launches_per_soft_demodulate_llr": coded["llr_counts"][
+                     "soft_llr"],
                  "launches_per_coded_decode": coded["counts"]["soft_llr"],
                  "bytes_bound_ms": llr["bound"]["bytes_bound_ms"],
                  "operations_bound_ms": llr["bound"]["operations_bound_ms"],
-                 "cases": llr["cases"]}}
+                 "cases": llr["cases"]},
+             "soft_llr_rows": {
+                 "tpu_kernel": None,
+                 "note": "replaces the JAX package's XLA ops: the LLRs, "
+                         "the deinterleave, the depuncture and the "
+                         "Viterbi's window pads, one launch",
+                 "timer": llr_rows["timer"],
+                 "event_ms": llr_rows["event_ms"],
+                 "launches_per_coded_decode": coded["counts"][
+                     "soft_llr_rows"],
+                 "bytes_bound_ms": llr_rows["bound"]["bytes_bound_ms"],
+                 "operations_bound_ms": llr_rows["bound"][
+                     "operations_bound_ms"],
+                 "cases": llr_rows["cases"]}}
     dev_ms["viterbi"] = (vit["ms"], vit["plain_ms"], None)
     dev_ms["soft_llr"] = (llr["ms"], llr["plain_ms"], None)
+    dev_ms["soft_llr_rows"] = (llr_rows["ms"], llr_rows["plain_ms"], None)
     # launches of each kernel in one replay of each served path's graph
     for name in KERNELS:
         per = {path: v["launches_per_replay"][name]

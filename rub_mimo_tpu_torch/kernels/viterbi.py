@@ -133,7 +133,7 @@ def viterbi(pairs: torch.Tensor, pinned: torch.Tensor) -> torch.Tensor:
     R, T, _ = pairs.shape
     if R * T >= 1 << 62 or T >= 1 << 31 or R >= 1 << 31:
         raise ValueError(f"viterbi: {R} x {T} steps too many for the kernel")
-    flags = pinned.to(torch.uint8).contiguous()
+    flags = pinned.contiguous().view(torch.uint8)  # the same bytes: no copy
     # the kernel's decision words: 4 ceil(T / 4) 64-bit words a row
     dec = torch.empty((R, 4 * (-(-T // 4))), dtype=torch.int64,
                       device=pairs.device)

@@ -221,6 +221,6 @@ def soft_demodulate_llr(y: torch.Tensor, modulation: Modulation,
     best metric -|y - c|^2 / noise_var over the points whose bit is 0
     less the best over those whose bit is 1, with the JAX package's
     |y - c|^2.  On a CUDA tensor one launch of the soft-LLR kernel
-    (kernels.soft_llr), else its plain version in passes of LLR_CHUNK
-    symbols."""
+    (kernels.soft_llr, the rows kernel with the identity geometry), else
+    its plain version in passes of LLR_CHUNK symbols."""
     return soft_llr.soft_llr(y, table(modulation), noise_var)

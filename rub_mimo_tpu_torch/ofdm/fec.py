@@ -7,13 +7,17 @@ rates 2/3 and 3/4, a stride interleaver, and the soft Viterbi that closes
 the loop from the max-log LLRs (ofdm/constellation.soft_demodulate_llr,
 detect/ml.ml_soft_llrs) to the message bits.
 
-Everything but the Viterbi recursion runs on the input's device as index
-gathers; each permutation or puncture index is made once per length and
-device (utils/device_cache.py).  The recursion is one launch of the
-hand-written kernel kernels/viterbi.py (csrc/viterbi.cu) on CUDA tensors,
-its plain version on CPU tensors: bit for bit the JAX package's scan.
-Long codewords decode block-parallel: overlapping windows of 4096 steps
-with 128 steps of margin on each side, each window a row of the kernel.
+The coded decode is two kernels on CUDA tensors: the soft-LLR kernel
+(kernels/soft_llr.py::soft_llr_rows, csrc/soft_llr.cu) computes the LLRs
+and writes them straight into the Viterbi's rows, with the deinterleave,
+depuncture and window pads in its store (``row_plan`` says where each
+LLR goes), and the Viterbi kernel (kernels/viterbi.py, csrc/viterbi.cu)
+decodes every row in one launch.  On CPU tensors both run their plain
+versions, the index gathers below and a Python loop over the steps: bit
+for bit the JAX package's chain.  Each permutation or puncture index is
+made once per length and device (utils/device_cache.py).  Long codewords
+decode block-parallel: overlapping windows of 4096 steps with 128 steps
+of margin on each side, each window a row of the kernel.
 
 The TX side (``encode_payload``, ``encode_data``) returns numpy, as the
 JAX package does, and its message comes from ``np.random.default_rng``:
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from rub_mimo_tpu_torch.config import ModemConfig, Modulation
+from rub_mimo_tpu_torch.kernels import soft_llr
 from rub_mimo_tpu_torch.kernels import viterbi as viterbi_kernel
 from rub_mimo_tpu_torch.ofdm import constellation, sctype
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
@@ -151,13 +156,20 @@ def viterbi_decode(llrs: torch.Tensor, window: int | None = None,
     codewords."""
     shape = llrs.shape
     flat = llrs.reshape(-1, shape[-1])
-    B, T = flat.shape[0], shape[-1] // 2
     bits = viterbi_kernel.viterbi(*viterbi_rows(flat, window, margin))
+    return _message(bits, flat.shape[0], shape[-1] // 2, window,
+                    margin).reshape(*shape[:-1], -1)
+
+
+def _message(bits: torch.Tensor, B: int, T: int, window: int | None,
+             margin: int) -> torch.Tensor:
+    """The Viterbi's decoded rows [B * rows, steps] -> the message bits
+    [B, T - TAIL]: each window's interior end to end, the tail dropped."""
     if window is not None:
         W = int(window)
         bits = bits.reshape(B, -1, W + 2 * margin)[:, :, margin: margin + W]
         bits = bits.reshape(B, -1)[:, :T]
-    return bits[:, : T - TAIL].reshape(*shape[:-1], -1)
+    return bits[:, : T - TAIL]
 
 
 # --------------------------------------------------------------- packing
@@ -187,15 +199,20 @@ def symbols_to_bits(symbols: torch.Tensor, modulation: Modulation
 
 
 # ------------------------------------------------------- interleaving
-@functools.lru_cache(maxsize=None)
-def _interleave_perm(n: int, spread: int) -> np.ndarray:
-    """Stride permutation: out[i] = in[perm[i]] with perm[i] = (i * s) % n
-    for the smallest s >= spread coprime to n, so adjacent coded bits land
-    ~s positions apart, far beyond the K = 7 memory."""
+def interleave_stride(n: int, spread: int) -> int:
+    """The interleaver's stride: the smallest s >= spread coprime to n."""
     s = max(int(spread), 1)
     while np.gcd(s, n) != 1:
         s += 1
-    return (np.arange(n, dtype=np.int64) * s) % n
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _interleave_perm(n: int, spread: int) -> np.ndarray:
+    """Stride permutation: out[i] = in[perm[i]] with perm[i] = (i * s) % n
+    for s = interleave_stride(n, spread), so adjacent coded bits land ~s
+    positions apart, far beyond the K = 7 memory."""
+    return (np.arange(n, dtype=np.int64) * interleave_stride(n, spread)) % n
 
 
 @device_constant
@@ -361,23 +378,43 @@ def decode_payload(rx_sig: torch.Tensor, cfg: ModemConfig,
     _, rx_lanes = _lanes(cfg)
     y = (rx_sig if rx_lanes == list(range(rx_sig.shape[0]))
          else torch.stack([rx_sig[lane] for lane in rx_lanes]))
-    llrs = constellation.soft_demodulate_llr(y, cfg.modulation, noise_var)
-    return _decode_from_llrs(llrs.reshape(len(rx_lanes), -1), cfg,
-                             interleave_bits, rate)
+    y = y.reshape(len(rx_lanes), -1)
+    return _decode_rows(y, cfg, interleave_bits, rate,
+                        constellation.table(cfg.modulation), noise_var)
+
+
+def row_plan(n: int, cfg: ModemConfig, rate: str = "1/2",
+             interleave_bits: bool = True) -> soft_llr.RowPlan:
+    """Where the Viterbi's rows take the LLRs of a lane of n wire LLRs
+    from: deinterleaved (interleave_bits), the first kept(used) of them
+    depunctured into used = 2 (n_msg + TAIL) LLRs; long codewords in
+    windows of 4096 steps with 128 of margin (block-parallel), short ones
+    in one pinned row (the exact scan)."""
+    n_msg = message_bits_per_stream(cfg, rate)
+    return soft_llr.RowPlan(
+        used=2 * (n_msg + TAIL), rate=rate,
+        stride=(interleave_stride(n, INTERLEAVE_SPREAD) if interleave_bits
+                else 1),
+        window=4096 if n_msg + TAIL > 4 * 4096 else None, margin=128)
+
+
+def _decode_rows(x: torch.Tensor, cfg: ModemConfig, interleave_bits: bool,
+                 rate: str, points=None, noise_var=1.0) -> torch.Tensor:
+    """Symbols [L, N] (over ``points``) or wire-order LLRs [L, n] ->
+    message bits [L, n_msg]: the soft-LLR kernel's rows, the Viterbi."""
+    n = x.shape[1] * (1 if x.dtype == torch.float32 else
+                      cfg.modulation.bits_per_symbol)
+    plan = row_plan(n, cfg, rate, interleave_bits)
+    pairs, pinned = soft_llr.soft_llr_rows(x, plan, points, noise_var)
+    return _message(viterbi_kernel.viterbi(pairs, pinned), x.shape[0],
+                    plan.used // 2, plan.window, plan.margin)
 
 
 def _decode_from_llrs(llrs: torch.Tensor, cfg: ModemConfig,
                       interleave_bits: bool, rate: str = "1/2"
                       ) -> torch.Tensor:
     """[L, n_coded] LLRs in TX wire order -> message bits [L, n_msg]."""
-    if interleave_bits:
-        llrs = deinterleave(llrs, INTERLEAVE_SPREAD)
-    n_msg = message_bits_per_stream(cfg, rate)
-    used = 2 * (n_msg + TAIL)
-    llrs = depuncture_llrs(llrs[:, : _kept_bits(used, rate)], used, rate)
-    # long codewords decode block-parallel; short ones in one exact scan
-    window = 4096 if n_msg + TAIL > 4 * 4096 else None
-    return viterbi_decode(llrs, window=window)
+    return _decode_rows(llrs.to(torch.float32), cfg, interleave_bits, rate)
 
 
 def decode_payload_ml(result, cfg: ModemConfig,

@@ -51,6 +51,7 @@ WRAPPERS = {
     "ring_shift_right": ("halo_dma", "ring_shift_right"),
     "viterbi": ("viterbi", "viterbi"),
     "soft_llr": ("soft_llr", "soft_llr"),
+    "soft_llr_rows": ("soft_llr", "soft_llr_rows"),
 }
 REPO = Path(__file__).resolve().parents[2]
 
@@ -351,16 +352,23 @@ def free_port() -> int:
 
 
 def launch(num_processes: int = 2, shards_per_process: int = 2, *,
-           device: str = "cpu", backend: str = "gloo",
+           device: str = "cuda", backend: Optional[str] = None,
            init_method: Optional[str] = None, halo_impl="ppermute",
            config: str = "tiny", meshes: Sequence[Sequence[int]] = ((4, 1),),
            seeds: Sequence[int] = (11,), timing_iters: int = 0,
            out_dir: Optional[str] = None, timeout: float = 120.0) -> list:
     """Run ``num_processes`` ranks of run_worker as subprocesses, each
     waited on until ``timeout`` seconds after the start; returns every
-    rank's records (rank-major).  Raises RuntimeError, with the ranks'
-    output, if any rank exits non-zero or is still running at the
-    timeout (all ranks are then killed)."""
+    rank's records (rank-major).  The ranks run on CUDA unless ``device``
+    is "cpu"; ``backend`` defaults to "nccl" on CUDA and "gloo" on the
+    CPU.  Raises RuntimeError for a CUDA device without CUDA, and, with
+    the ranks' output, if any rank exits non-zero or is still running at
+    the timeout (all ranks are then killed)."""
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError('multiprocess.launch: no CUDA device; pass '
+                           'device="cpu" for CPU ranks under gloo')
+    if backend is None:
+        backend = "gloo" if device == "cpu" else "nccl"
     if init_method is None:
         init_method = f"tcp://127.0.0.1:{free_port()}"
     argv = ["--processes", str(num_processes), "--shards",

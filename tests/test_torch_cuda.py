@@ -1411,7 +1411,8 @@ def test_viterbi_kernel_rejects_what_it_cannot_take():
 def test_coded_decode_on_card_matches_cpu(rate):
     """encode_payload -> capture -> decode -> decode_payload on the card
     equals the same chain on the CPU (windowed: 260 frames of QPSK at M =
-    64 exceed 4 x 4096 steps), BER 0, the Viterbi launched once."""
+    64 exceed 4 x 4096 steps), BER 0, the soft-LLR rows kernel and the
+    Viterbi launched once each."""
     dev = require_cuda()
     from rub_mimo_tpu_torch.kernels import viterbi as kv
     from rub_mimo_tpu_torch.ofdm import fec
@@ -1425,11 +1426,11 @@ def test_coded_decode_on_card_matches_cpu(rate):
                              cfg, rate=rate)
     from rub_mimo_tpu_torch.kernels import soft_llr as ks
 
-    before, llr_before = kv.viterbi.launches, ks.soft_llr.launches
+    before, llr_before = kv.viterbi.launches, ks.soft_llr_rows.launches
     card = fec.decode_payload(rx.make_decoder(cfg, device=dev)(cap).rx_sig,
                               cfg, rate=rate)
     assert kv.viterbi.launches == before + 1
-    assert ks.soft_llr.launches == llr_before + 1
+    assert ks.soft_llr_rows.launches == llr_before + 1
     assert card.device.type == "cuda"
     assert torch.equal(card.cpu(), cpu)
     assert np.array_equal(n(card), msg)
@@ -1477,6 +1478,46 @@ def test_soft_llr_kernel_matches_plain(mod, n):
                      ks.soft_llr_plain(shaped, tab, 0.5))
 
 
+def magnitude_symbols(tab: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """n symbols of log-uniform magnitude 2^-20 to 2^20 (inside the
+    kernel's fast range, 2^-16 to 2^16, and past it on both sides), an
+    eighth real-valued and an eighth imaginary (a coordinate 0), then the
+    points themselves, the midpoints of neighbours (ties) and the points
+    moved by 2^-30 to 2^-8."""
+    rng = np.random.default_rng(seed)
+    y = (2.0 ** rng.uniform(-20, 20, n)
+         * np.exp(2j * np.pi * rng.uniform(size=n))).astype(np.complex64)
+    y[: n // 8] = y[: n // 8].real
+    y[n // 8: n // 4] = 1j * y[n // 8: n // 4].imag
+    k = len(tab)
+    y[n // 4: n // 4 + k] = tab
+    y[n // 4 + k: n // 4 + 2 * k - 1] = (tab[1:] + tab[:-1]) / 2
+    m = n // 4 + 2 * k
+    near = tab[rng.integers(0, k, 4096)] + (
+        2.0 ** rng.uniform(-30, -8, 4096)
+        * np.exp(2j * np.pi * rng.uniform(size=4096)))
+    y[m: m + 4096] = near.astype(np.complex64)
+    return y
+
+
+@pytest.mark.parametrize("mod", ALL_MODS)
+def test_soft_llr_kernel_fast_path_across_magnitudes(mod):
+    """The kernel's fast path (no hypotf: the square root of a half's least
+    fma(max, max, min * min)) and its rare path, value for value against
+    soft_llr_plain on 2^20 symbols of magnitudes 2^-20 to 2^20, with a
+    coordinate 0, on the points, at ties and 2^-30 to 2^-8 off the points
+    (magnitude_symbols); BPSK holds each point's hypotf by itself."""
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+
+    tab = constellation.table(mod)
+    y = torch.as_tensor(magnitude_symbols(tab, 1 << 20, len(tab) + 17),
+                        device=dev)
+    for nv in (0.37, torch.tensor(0.37, device=dev)):
+        got = ks.soft_llr(y, tab, nv)
+        assert same_llrs(got, ks.soft_llr_plain(y, tab, nv)), nv
+
+
 def test_soft_llr_kernel_rejects_what_it_cannot_take():
     dev = require_cuda()
     from rub_mimo_tpu_torch.kernels import soft_llr as ks
@@ -1490,6 +1531,105 @@ def test_soft_llr_kernel_rejects_what_it_cannot_take():
     with pytest.raises(ValueError):
         ks.soft_llr(y, tab, torch.ones(2, device=dev))
     assert ks.soft_llr(y[:0], tab).shape == (0, 2)
+
+
+ROW_RATES = ("1/2", "2/3", "3/4")
+
+
+def row_plans(n: int, rate: str):
+    """RowPlans over lanes of n LLRs at ``rate``: the longest codeword the
+    lanes hold, interleaved (the smallest stride >= 127 coprime to n) or
+    not, one pinned row or windows of 4096 steps."""
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+    from rub_mimo_tpu_torch.ofdm import fec
+
+    used = 2 * (n // 2)
+    while fec._kept_bits(used, rate) > n:
+        used -= 2
+    while fec._kept_bits(used + 2, rate) <= n:
+        used += 2
+    return [ks.RowPlan(used=used, rate=rate, stride=stride, window=window)
+            for stride in (fec.interleave_stride(n, 127), 1)
+            for window in (None, 4096)]
+
+
+@pytest.mark.parametrize("rate", ROW_RATES)
+@pytest.mark.parametrize("mod", ALL_MODS)
+def test_soft_llr_rows_kernel_matches_plain(mod, rate):
+    """The soft-LLR rows kernel equals soft_llr_rows_plain on the card
+    value for value (NaN where it is NaN) on 2 lanes of 20,001 seeded
+    symbols with NaN, +-Inf and 1e30 rows: interleaved or not, one pinned
+    row (several tiles) or windows of 4096, noise_var a number, a device
+    tensor and a CPU scalar tensor (and 0, the per-point path); the
+    LLR-input instance on the same LLRs; one launch a call."""
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+
+    tab = constellation.table(mod)
+    y = torch.as_tensor(np.stack([llr_symbols(mod, 20_001),
+                                  llr_symbols(mod, 20_001)[::-1]]),
+                        device=dev)
+    n = y.shape[1] * mod.bits_per_symbol
+    for plan in row_plans(n, rate):
+        for nv in (0.37, torch.tensor(0.37, device=dev), torch.tensor(0.37),
+                   0.0):
+            before = ks.soft_llr_rows.launches
+            got, pin = ks.soft_llr_rows(y, plan, tab, nv)
+            torch.cuda.synchronize()
+            assert ks.soft_llr_rows.launches == before + 1
+            want, want_pin = ks.soft_llr_rows_plain(y, plan, tab, nv)
+            assert same_llrs(got, want), (plan, nv)
+            assert torch.equal(pin, want_pin) and pin.device.type == "cuda"
+        llrs = ks.soft_llr_plain(y, tab, 0.37).reshape(2, -1)
+        got, _ = ks.soft_llr_rows(llrs, plan)
+        assert same_llrs(got, ks.soft_llr_rows_plain(llrs, plan)[0]), plan
+
+
+def test_soft_llr_rows_kernel_rejects_what_it_cannot_take():
+    dev = require_cuda()
+    from rub_mimo_tpu_torch.kernels import soft_llr as ks
+
+    tab = constellation.table(Modulation.QPSK)
+    y = torch.zeros((2, 500), dtype=torch.complex64, device=dev)
+    plan = ks.RowPlan(used=1000, rate="1/2", stride=127)
+    for bad in (y.to(torch.complex128), y.reshape(-1), y[:, :100]):
+        with pytest.raises(ValueError):
+            ks.soft_llr_rows(bad, plan, tab)
+    with pytest.raises(ValueError):  # 1000 LLRs a lane: not coprime to 2
+        ks.soft_llr_rows(y, plan._replace(stride=2), tab)
+    with pytest.raises(ValueError):
+        ks.soft_llr_rows(y.real.contiguous(), plan, tab)
+    with pytest.raises(ValueError):
+        ks.soft_llr_rows(y, plan, tab, torch.ones(2, device=dev))
+
+
+def test_coded_back_end_runs_two_kernels_on_the_llrs():
+    """decode_payload on the card at rate 1/2 (windowed): the rows kernel,
+    then the Viterbi kernel, then at most one copy of the decoded bits (the
+    windows' interiors); no other kernel and no memset or copy touches the
+    LLRs (torch.profiler's kernel list in launch order)."""
+    dev = require_cuda()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rub_mimo_tpu_torch.ofdm import fec
+
+    cfg = tiny_config(bit_exact=False, pid_max=260)
+    y = torch.as_tensor(np.stack(
+        [llr_symbols(cfg.modulation, cfg.pid_max * cfg.M_occupied)] * 2),
+        device=dev)
+    fec.decode_payload(y, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fec.decode_payload(y, cfg)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    assert len(names) in (2, 3), names
+    assert "soft_llr_rows_kernel" in names[0], names
+    assert "viterbi_kernel" in names[1], names
 
 
 def test_decode_with_sfo_on_card_matches_cpu():

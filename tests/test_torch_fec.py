@@ -320,3 +320,63 @@ def test_coded_siso_guard_band_chain_matches_jax():
     np.testing.assert_array_equal(oracle.n(fec.decode_payload(r.rx_sig, cfg)),
                                   want)
     np.testing.assert_array_equal(want, msg)
+
+
+@pytest.mark.parametrize("interleave", [True, False],
+                         ids=["interleaved", "plain"])
+@pytest.mark.parametrize("rate", RATES)
+def test_decode_through_the_soft_llr_rows_matches_jax(rate, interleave):
+    """The coded decode the way the soft-LLR rows kernel composes it
+    (kernels.soft_llr.soft_llr_rows' plain version on the CPU): the same
+    numpy symbols of a windowed codeword (260 frames of QPSK at M = 64,
+    past 4 x 4096 steps), the transmitted points with seeded noise at
+    ~9 dB, through both packages' decode_payload, and their JAX LLRs
+    through both _decode_from_llrs: equal bits (tolerance 0), the message
+    recovered."""
+    jcfg = tiny_config(bit_exact=False, pid_max=260,
+                       modulation=Modulation.QPSK)
+    cfg = oracle.pcfg(jcfg)
+    msg, txd = jfec.encode_payload(jcfg, seed=9, rate=rate,
+                                   interleave_bits=interleave)
+    _, lanes = fec._lanes(cfg)
+    rng = np.random.default_rng(len(rate) + 2 * interleave)
+    pts = jconst.table(jcfg.modulation)[txd]
+    sig = (pts + (rng.standard_normal(pts.shape)
+                  + 1j * rng.standard_normal(pts.shape)) * 0.25
+           ).astype(np.complex64)
+    want = jn(jfec.decode_payload(jnp.asarray(sig), jcfg, 0.125,
+                                  interleave_bits=interleave, rate=rate))
+    got = fec.decode_payload(torch.as_tensor(sig), cfg, 0.125,
+                             interleave_bits=interleave, rate=rate)
+    np.testing.assert_array_equal(oracle.n(got), want)
+    np.testing.assert_array_equal(want, msg)
+    llrs = np.array(jconst.soft_demodulate_llr(
+        jnp.asarray(sig[lanes]), jcfg.modulation, 0.125)).reshape(
+            len(lanes), -1)
+    np.testing.assert_array_equal(
+        oracle.n(fec._decode_from_llrs(torch.as_tensor(llrs), cfg,
+                                       interleave, rate)),
+        jn(jfec._decode_from_llrs(jnp.asarray(llrs), jcfg, interleave,
+                                  rate)))
+
+
+@pytest.mark.parametrize("rate,interleave", [("3/4", False), ("2/3", True)])
+def test_decode_payload_ml_through_the_soft_llr_rows_matches_jax(
+        rate, interleave):
+    """decode_payload_ml (the LLR-input form of the soft-LLR rows) at
+    other rates and without the interleaver: the port's decode of the
+    same capture against the JAX package's, equal bits."""
+    jcfg = tiny_config(bit_exact=False, pid_max=32, sync_fallback=True,
+                       modulation=Modulation.QAM16, detector=Detector.ML)
+    cfg = oracle.pcfg(jcfg)
+    msg, txd = jfec.encode_payload(jcfg, seed=4, rate=rate,
+                                   interleave_bits=interleave)
+    cap, _ = oracle.jax_capture(jcfg, snr_db=16.0, seed=2, tx_data=txd)
+    jr = jrx.decode(jnp.asarray(cap), jcfg)
+    r = rx.make_decoder(cfg, device="cpu")(cap)
+    want = jn(jfec.decode_payload_ml(jr, jcfg, interleave_bits=interleave,
+                                     rate=rate))
+    got = fec.decode_payload_ml(r, cfg, interleave_bits=interleave,
+                                rate=rate)
+    np.testing.assert_array_equal(oracle.n(got), want)
+    np.testing.assert_array_equal(want, msg)
