@@ -126,9 +126,13 @@ host read in its payload phase), --precoded, --fec at rates 1/2 and 3/4,
 library is built (g++) with the kernels.
 It decodes the operating point across processes (parallel.multiprocess,
 one process a rank): on one card 2 gloo ranks of 2 time shards on
-cuda:0 at (4, 1), with pallas_dma (K8 pulling a halo through the other
-rank's IPC-mapped buffer, once a rank a decode, bit for bit against its
-plain version) and ppermute; on 2+ cards one NCCL rank a card at
+cuda:0 at (4, 1), with pallas_dma (K8 publishing, waiting on the other
+rank's flag word and pulling through its IPC-mapped buffer in one launch
+a rank a decode, bit for bit against its plain version; then 200
+back-to-back exchanges a rank with no host sync between them, bit for
+bit, with the host syncs and launches a call counted, the kernel's
+publish, wait and pull in µs from its own marks, and a call's host time
+alone and synchronized) and ppermute; on 2+ cards one NCCL rank a card at
 (n, 1), and on four mimo_4x4_wideband (4, 1) with pallas_dma; every rank
 equal to its single decode with SER 0, rank 0's wall ms beside the
 single-controller decode of the same mesh (multiprocess lines).  It
@@ -274,7 +278,7 @@ DEVICE_KERNELS = {
     "sc_sync": ("sc_sync_scan", "sc_sync_resolve"),
     "sc_metric": ("sc_metric_kernel",),
     "cp_strip": ("cp_strip_kernel",),
-    "ring_shift_right": ("ring_shift_right_kernel",),
+    "ring_shift_right": ("ring_shift_right_kernel", "halo_exchange_kernel"),
     "viterbi": ("viterbi_kernel",),
     "soft_llr": ("soft_llr_kernel",),
     "soft_llr_rows": ("soft_llr_rows_kernel",),
@@ -2403,6 +2407,7 @@ def cli_cases(dev, card, cfg, tmp: Path) -> dict:
 
 
 MP_ITERS = 10       # timed decodes of each multi-process case (rank 0's)
+MP_HALO_CALLS = 200  # back-to-back K8 exchanges a rank, bit for bit
 MP_TIMEOUT = 420.0  # a launch's limit: a hung rank fails the phase
 APPS_CHUNK = 65536  # live_view's replay chunk (the streaming default)
 
@@ -2435,6 +2440,28 @@ def k8_rank_bound(k8: dict) -> float:
     return max(t_hbm, t_link) * 1e3
 
 
+def k8_summary(by_rank: list) -> dict:
+    """The cross-process K8's numbers a rank, where it ran: the kernel's
+    own split (publish, the neighbour's wait, the pull; µs), the host time
+    of a call alone and with its stream synchronized (ms), host syncs and
+    launches a call over the back-to-back calls and their bit equality."""
+    k8 = [k for k in by_rank if k is not None]
+    if not k8:
+        return {}
+    return {"k8_split_us_by_rank": [k.get("split_us") for k in k8],
+            "k8_launch_ms_by_rank": [k.get("launch_ms_median") for k in k8],
+            "k8_synced_ms_by_rank": [k.get("exchange_wall_ms_median")
+                                     for k in k8],
+            "k8_back_to_back_ms_by_rank": [k.get("back_to_back_ms_per_call")
+                                           for k in k8],
+            "k8_host_syncs_per_call": max(k["host_syncs_per_call"]
+                                          for k in k8),
+            "k8_launches_per_call": max(k["launches_per_call"] for k in k8),
+            "k8_back_to_back_calls": k8[0]["back_to_back_calls"],
+            "k8_back_to_back_bit_equal": all(k["back_to_back_bit_equal"]
+                                             for k in k8)}
+
+
 def check_ranks(name: str, recs: list, ranks: int, expect: dict) -> dict:
     """The multi-process records of one case: every rank equal to its
     single decode with SER 0, its launches as ``expect`` (kernels not
@@ -2454,8 +2481,15 @@ def check_ranks(name: str, recs: list, ranks: int, expect: dict) -> dict:
                 f"{r['rank']} launches {r['launches']}, expected {want}")
         require(not r["jax_loaded"], f"multiprocess {name}: jax imported")
         if "k8" in r:
-            require(r["k8"]["bit_equal"], f"multiprocess {name}: rank "
-                    f"{r['rank']}'s K8 differs from its plain version")
+            k8 = r["k8"]
+            require(k8["bit_equal"] and k8["back_to_back_bit_equal"],
+                    f"multiprocess {name}: rank {r['rank']}'s K8 differs "
+                    "from its plain version")
+            require(k8["host_syncs_per_call"] == 0
+                    and k8["launches_per_call"] == 1,
+                    f"multiprocess {name}: rank {r['rank']}'s K8 made "
+                    f"{k8['host_syncs_per_call']} host syncs and "
+                    f"{k8['launches_per_call']} launches a call")
     r0 = min(recs, key=lambda r: r["rank"])
     return {**r0, "launches_by_rank": [r["launches"] for r in recs],
             "k8_by_rank": [r.get("k8") for r in recs]}
@@ -2505,7 +2539,8 @@ def multiprocess_phase(card: str, shard_runs: dict, xc) -> dict:
         recs = mp.launch(ranks, per, device=device, backend=backend,
                          halo_impl=tuple(singles), config=config,
                          meshes=(shape,), seeds=(seed,),
-                         timing_iters=MP_ITERS, timeout=MP_TIMEOUT)
+                         timing_iters=MP_ITERS, timeout=MP_TIMEOUT,
+                         halo_calls=MP_HALO_CALLS)
         launch_s = time.perf_counter() - t0
         for impl in singles:
             r0 = check_ranks(f"{name}/{impl}", [
@@ -2520,6 +2555,7 @@ def multiprocess_phase(card: str, shard_runs: dict, xc) -> dict:
                    "G_max_abs_err": r0["G_max_abs_err"],
                    "mismatches": r0["mismatches"],
                    "k8_by_rank": r0["k8_by_rank"],
+                   **k8_summary(r0["k8_by_rank"]),
                    "wall_ms_rank0": r0["wall_ms"],
                    "single_controller_wall_ms": single_ms[impl],
                    "launch_seconds": launch_s}
@@ -3705,6 +3741,10 @@ def main() -> None:
                          "exchange_wall_ms_by_rank": [
                              k["exchange_wall_ms_median"]
                              for k in v["k8_by_rank"]],
+                         "launch_ms_by_rank": v["k8_launch_ms_by_rank"],
+                         "split_us_by_rank": v["k8_split_us_by_rank"],
+                         "host_syncs_per_call": v["k8_host_syncs_per_call"],
+                         "launches_per_call": v["k8_launches_per_call"],
                          "bound_ms_by_rank": [
                              k8_rank_bound(k) for k in v["k8_by_rank"]]}
                      for key, v in mproc.items()

@@ -14,7 +14,8 @@ lax collectives:
     when its exactness flag is raised.  The full-rate stage takes its
     (M-1)-sample left halo from K8 (kernels.halo_dma, ``halo_impl=
     "pallas_dma"``; one launch per card, pulling across cards by peer
-    access) or from the ppermute collective, the metric of every shard's
+    access, writing into the rows K6 reads) or from the ppermute
+    collective, the metric of every shard's
     [halo | block] from K6 in one launch per card (rows stacked), the
     cross-shard run-start carry from an all_gather prefix max, and
     elects the first fire with pmin / psum.  With sync_fallback, the S0
@@ -50,10 +51,15 @@ values between ranks.  The time stages run on "sc" column 0 as above;
 the sc stages on a time row this rank holds (each rank holds whole
 rows), so the region, the matched filter, the LS estimate and the
 weights come out replicated on every rank; K8's halo crosses ranks
-through kernels.halo_dma.ProcessHalo (``pallas_dma``).  Stage C's rows
+through kernels.halo_dma.ProcessHalo (``pallas_dma``: one launch a rank
+publishes, waits on the neighbour rank's flag word and pulls, all on the
+device, with no host barrier or synchronize).  Stage C's rows
 are summed over the ranks (one owner each), so every rank returns the
 whole ShardedDecodeResult on its first shard's device.  The decoder's
-``close()`` (every rank at once) releases what ProcessHalo mapped.
+``close()`` (every rank at once) releases what ProcessHalo mapped.  A
+decode that raises on a rank leaves the exchange's epochs apart: its
+later decodes raise, and the decoder is closed and rebuilt on every
+rank.
 
 Host reads (each drains the stream on a GPU), as the JAX package's
 conds: the coarse stage's exactness flag (``need_full``; coarse stage A
@@ -146,29 +152,31 @@ def stage_a_rows(blocks, mesh: Mesh, H: int, halo_impl: str,
     """Stage A's K6 input: per device, (the time shards ts it holds,
     [len(ts), S, H + Tloc] complex64), shard t's rows its left halo (the
     last H samples of shard t - 1, zeros for t = 0) then blocks[t][0].
-    ``exchange``: the halo_dma.ProcessHalo of a mesh over several ranks
-    (``pallas_dma``)."""
+    K8 (``pallas_dma``) writes the halo columns itself (``out=``);
+    ``exchange``: the halo_dma.ProcessHalo of a mesh over several ranks."""
     n_time = mesh.shape["time"]
     mine = [t for t, _ in mesh.local_shards()]
     S, Tloc = blocks[mine[0]][0].shape
-    tails = coll.for_each(mesh, lambda t, s: blocks[t][s][:, -H:])
-    if exchange is not None:
-        left = exchange(tails)
-    elif n_time > 1 and halo_impl == "pallas_dma":
-        left = halo_dma.ring_shift_right(tails, mesh)
-    else:
-        left = coll.ppermute_right(tails, mesh)  # zeros when n_time == 1
     by_dev = {}
     for t in mine:
         by_dev.setdefault(blocks[t][0].device, []).append(t)
-    rows = {}
+    rows, left = {}, [[None] for _ in range(n_time)]
     for dev, ts in by_dev.items():
         buf = torch.empty((len(ts), S, H + Tloc), dtype=torch.complex64,
                           device=dev)
         for i, t in enumerate(ts):
-            buf[i, :, :H] = left[t][0]
             buf[i, :, H:] = blocks[t][0]
+            left[t][0] = buf[i, :, :H]
         rows[dev] = (ts, buf)
+    tails = coll.for_each(mesh, lambda t, s: blocks[t][s][:, -H:])
+    if exchange is not None:
+        exchange(tails, out=left)
+    elif n_time > 1 and halo_impl == "pallas_dma":
+        halo_dma.ring_shift_right(tails, mesh, out=left)
+    else:
+        got = coll.ppermute_right(tails, mesh)  # zeros when n_time == 1
+        for t in mine:
+            left[t][0].copy_(got[t][0])
     return rows
 
 
@@ -655,6 +663,16 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
                                                        ref, M))
 
     def run(blocks) -> ShardedDecodeResult:
+        if exchange is None:
+            return decode(blocks)
+        try:
+            return decode(blocks)
+        except BaseException as e:
+            # the ranks' halo epochs may be apart now: later calls raise
+            exchange.fail(f"a decode raised {e!r}")
+            raise
+
+    def decode(blocks) -> ShardedDecodeResult:
         for r in blocks:
             for b in r:
                 if b is not None and tuple(b.shape) != (S, Tloc):

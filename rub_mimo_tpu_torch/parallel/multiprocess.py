@@ -129,10 +129,70 @@ def _ser(rx_data: torch.Tensor, tx_data, cfg) -> list:
             for s in range(cfg.num_streams)]
 
 
-def _halo_check(dec, planes, cap, mesh, cfg) -> dict:
+def _host_syncs() -> list:
+    """What a steady-state exchange must not call, as (owner, name): host
+    synchronization, the group, a copy."""
+    import torch.distributed as dist
+
+    return [(torch.cuda, "synchronize"), (torch.cuda.Stream, "synchronize"),
+            (torch.cuda.Event, "synchronize"), (dist, "barrier"),
+            (dist, "all_reduce"), (dist, "all_gather_object"),
+            (dist, "broadcast"), (torch.Tensor, "copy_")]
+
+
+class CountHostSyncs:
+    """While active, count every call of ``_host_syncs()`` in this
+    process (``calls``) and, where there is CUDA, fail any synchronizing
+    CUDA operation (torch.cuda.set_sync_debug_mode("error"))."""
+
+    def __enter__(self):
+        self.calls, self._saved = 0, []
+        for owner, name in _host_syncs():
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+
+            setattr(owner, name, counted)
+        self._mode = None
+        if torch.cuda.is_available():
+            self._mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        if self._mode is not None:
+            torch.cuda.set_sync_debug_mode(self._mode)
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        return False
+
+
+def _column_halos(col, n_time: int, S: int, H: int, seed: int, device):
+    """Seeded complex64 [S, H] halos of every time shard (the same on
+    every rank), each rank's own on its device: (the rank's parts, the
+    reference halos received)."""
+    from rub_mimo_tpu_torch.kernels import halo_dma
+
+    rng = np.random.default_rng(seed)
+    every = [(rng.standard_normal((S, H)) + 1j * rng.standard_normal(
+        (S, H))).astype(np.complex64) for _ in range(n_time)]
+    parts = [[torch.as_tensor(every[t], device=device)
+              if col.is_local(t, 0) else None] for t in range(n_time)]
+    ref = halo_dma.ring_shift_right_reference(
+        [[torch.as_tensor(x)] for x in every], col)
+    return parts, ref
+
+
+def _halo_check(dec, planes, cap, mesh, cfg, calls: int = 0) -> dict:
     """K8 across processes (the decoder's ProcessHalo) on this capture's
     own halos, bit for bit against ring_shift_right_reference of every
-    shard's halo (each rank holds the whole capture)."""
+    shard's halo (each rank holds the whole capture); then ``calls``
+    back-to-back calls on fresh seeded halos with no host synchronization
+    between them (counted: ``host_syncs_per_call``), each received halo
+    bit for bit against the plain version after one synchronize."""
     from rub_mimo_tpu_torch.kernels import halo_dma
     from rub_mimo_tpu_torch.parallel import collectives as coll
     from rub_mimo_tpu_torch.parallel import mesh as pmesh
@@ -148,52 +208,117 @@ def _halo_check(dec, planes, cap, mesh, cfg) -> dict:
         [[b[0][:, -H:]] for b in full], col)
     got = dec.exchange(tails)
     _sync(cap.device)
+    mine = [t for t, _ in col.local_shards()]
     err, equal = 0.0, True
-    for t, _ in col.local_shards():
+    for t in mine:
         equal &= torch.equal(got[t][0], ref[t][0])
         err = max(err, float((got[t][0] - ref[t][0]).abs().max()))
-    mine = [t for t, _ in col.local_shards()]
     remote = [t for t in mine if t > 0 and not col.is_local(t - 1, 0)]
-    return {"bit_equal": bool(equal), "max_abs_err": err,
-            "halo": [cfg.num_streams, H], "shards": len(mine),
-            "reads": sum(t > 0 for t in mine), "remote_reads": len(remote),
-            "remote_on_another_card": any(
-                col.devices[t - 1, 0] != col.devices[t, 0] for t in remote)}
+    out = {"bit_equal": bool(equal), "max_abs_err": err,
+           "halo": [cfg.num_streams, H], "shards": len(mine),
+           "reads": sum(t > 0 for t in mine), "remote_reads": len(remote),
+           "remote_on_another_card": any(
+               col.devices[t - 1, 0] != col.devices[t, 0] for t in remote)}
+    if calls:
+        cases = [_column_halos(col, n_time, cfg.num_streams, H, 1000 + i,
+                               cap.device) for i in range(calls)]
+        launches = halo_dma.ring_shift_right.launches
+        with CountHostSyncs() as counted:
+            recv = [dec.exchange(parts) for parts, _ in cases]
+        _sync(cap.device)
+        same = all(torch.equal(r[t][0].cpu(), want[t][0])
+                   for r, (_, want) in zip(recv, cases) for t in mine)
+        out.update(back_to_back_calls=calls,
+                   back_to_back_bit_equal=bool(same),
+                   host_syncs_per_call=counted.calls / calls,
+                   launches_per_call=(halo_dma.ring_shift_right.launches
+                                      - launches) / calls)
+    return out
+
+
+def _median_split(splits: list) -> dict:
+    keys = splits[0].keys()
+    return {k: (None if splits[0][k] is None else
+                statistics.median(s[k] for s in splits)) for k in keys}
 
 
 def _profile_halo(dec, planes, cfg, n: int) -> dict:
-    """The cross-process K8's own device time (torch.profiler, mean µs a
-    launch over n calls) and the wall ms of a whole exchange (copy in,
-    handshakes, launch), median of n."""
+    """The cross-process K8 of one rank, each call after a barrier that
+    lines the ranks up (outside the timing): the host time of the call
+    alone (``launch_ms_median``: it returns once the kernel is queued)
+    and with the stream synchronized after it
+    (``exchange_wall_ms_median``); ``back_to_back_ms_per_call``, n calls
+    and one synchronize; the kernel's own marks (``split_us``: publish,
+    the neighbour's wait and the pull, medians of n calls); and its
+    device time (torch.profiler, mean µs a launch over n calls, the wait
+    included)."""
+    import torch.distributed as dist
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from rub_mimo_tpu_torch.kernels import halo_dma
     from rub_mimo_tpu_torch.parallel import collectives as coll
 
-    col = dec.exchange.mesh
+    ex = dec.exchange
+    col, dev = ex.mesh, ex.device
     H = cfg.M - 1
     tails = coll.for_each(col, lambda t, s: torch.complex(
         planes[0][t][0][:, -H:], planes[1][t][0][:, -H:]))
-    wall = []
+    out = ex(tails)
+    stream = torch.cuda.current_stream(dev)
+
+    def barrier():
+        stream.synchronize()
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[dev.index])
+        else:
+            dist.barrier()
+
+    launch, wall = [], []
+    for times, synced in ((launch, False), (wall, True)):
+        for _ in range(n):
+            barrier()
+            t0 = time.perf_counter()
+            ex(tails, out=out)
+            if synced:
+                stream.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    barrier()
+    t0 = time.perf_counter()
     for _ in range(n):
-        t0 = time.perf_counter()
-        dec.exchange(tails)
-        wall.append((time.perf_counter() - t0) * 1e3)
+        ex(tails, out=out)
+    stream.synchronize()
+    b2b = (time.perf_counter() - t0) * 1e3 / n
+    marks = []
+    for _ in range(n):
+        m = ex.marks_buffer()
+        barrier()
+        ex(tails, out=out, marks=m)
+        marks.append(m)
+    stream.synchronize()
+    n_pub = len(ex.plan.publish)
+    split = _median_split([halo_dma.split_us(m.cpu().numpy(), n_pub,
+                                             ex.remote) for m in marks])
+    barrier()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            dec.exchange(tails)
+            ex(tails, out=out)
+            barrier()
     ev = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == DeviceType.CUDA
-          and "ring_shift_right_kernel" in e.name]
+          and "halo_exchange_kernel" in e.name]
     return {"kernel_us": statistics.mean(ev) if ev else None,
             "kernel_launches_profiled": len(ev),
-            "exchange_wall_ms_median": statistics.median(wall)}
+            "launch_ms_median": statistics.median(launch),
+            "exchange_wall_ms_median": statistics.median(wall),
+            "back_to_back_ms_per_call": b2b, "split_us": split}
 
 
 def run_case(dist_info: dict, mesh_shape: Sequence[int], case: tuple, *,
              device: torch.device, shards_per_process: int, halo_impl: str,
-             timing_iters: int = 0, out_dir: Optional[str] = None) -> dict:
+             timing_iters: int = 0, out_dir: Optional[str] = None,
+             halo_calls: int = 0) -> dict:
     """One case on this rank: the capture of ``case`` (config name, seed,
     cfg, capture, tx_data, the single decode of it on this rank's device)
     decoded sharded over the ranks from (re, im) planes, and held against
@@ -217,7 +342,8 @@ def run_case(dist_info: dict, mesh_shape: Sequence[int], case: tuple, *,
            "capture": list(cap.shape)}
     try:
         if dec.exchange is not None:
-            rec["k8"] = _halo_check(dec, planes, cap, mesh, cfg)
+            rec["k8"] = _halo_check(dec, planes, cap, mesh, cfg,
+                                    halo_calls)
         wrappers = _wrappers()
         for w in wrappers.values():
             w.launches = 0
@@ -259,7 +385,7 @@ def run_worker(process_id: int, num_processes: int, shards_per_process: int,
                halo_impl="ppermute", config: str = "tiny",
                meshes: Sequence[Sequence[int]] = ((4, 1),),
                seeds: Sequence[int] = (11,), timing_iters: int = 0,
-               out_dir: Optional[str] = None) -> list:
+               out_dir: Optional[str] = None, halo_calls: int = 0) -> list:
     """Rank ``process_id`` of ``num_processes``: join the group, run every
     (halo_impl, mesh, seed) case (halo_impl: one name or several), print
     one JSON line a case and return the records.  device: "cpu", "cuda"
@@ -296,7 +422,7 @@ def run_worker(process_id: int, num_processes: int, shards_per_process: int,
                     rec = run_case(info, shape, case, device=dev,
                                    shards_per_process=shards_per_process,
                                    halo_impl=impl, timing_iters=timing_iters,
-                                   out_dir=out_dir)
+                                   out_dir=out_dir, halo_calls=halo_calls)
                     rec["jax_loaded"] = any(
                         m == "jax" or m.startswith(("jax.", "rub_mimo_tpu."))
                         for m, v in sys.modules.items() if v is not None)
@@ -356,7 +482,8 @@ def launch(num_processes: int = 2, shards_per_process: int = 2, *,
            init_method: Optional[str] = None, halo_impl="ppermute",
            config: str = "tiny", meshes: Sequence[Sequence[int]] = ((4, 1),),
            seeds: Sequence[int] = (11,), timing_iters: int = 0,
-           out_dir: Optional[str] = None, timeout: float = 120.0) -> list:
+           out_dir: Optional[str] = None, timeout: float = 120.0,
+           halo_calls: int = 0) -> list:
     """Run ``num_processes`` ranks of run_worker as subprocesses, each
     waited on until ``timeout`` seconds after the start; returns every
     rank's records (rank-major).  The ranks run on CUDA unless ``device``
@@ -374,7 +501,8 @@ def launch(num_processes: int = 2, shards_per_process: int = 2, *,
     argv = ["--processes", str(num_processes), "--shards",
             str(shards_per_process), "--device", device, "--backend",
             backend, "--init-method", init_method, "--config", config,
-            "--timing-iters", str(timing_iters)]
+            "--timing-iters", str(timing_iters), "--halo-calls",
+            str(halo_calls)]
     for impl in [halo_impl] if isinstance(halo_impl, str) else halo_impl:
         argv += ["--halo-impl", impl]
     for shape in meshes:
@@ -455,6 +583,9 @@ def main(argv=None) -> int:
                          "shards along time)")
     ap.add_argument("--seed", type=int, action="append", default=None)
     ap.add_argument("--timing-iters", type=int, default=0)
+    ap.add_argument("--halo-calls", type=int, default=0,
+                    help="back-to-back K8 exchanges held against the plain "
+                         "version a pallas_dma case, no host sync between")
     ap.add_argument("--out-dir", default=None,
                     help="write each rank's result of each case as .npz")
     ap.add_argument("--timeout", type=float, default=600.0)
@@ -480,8 +611,11 @@ def main(argv=None) -> int:
                           backend=backend, init_method=a.init_method,
                           halo_impl=impls, config=a.config,
                           meshes=meshes, seeds=seeds,
-                          timing_iters=a.timing_iters, out_dir=a.out_dir)
-        return 0 if all(r["equal_to_single"] for r in recs) else 1
+                          timing_iters=a.timing_iters, out_dir=a.out_dir,
+                          halo_calls=a.halo_calls)
+        k8_ok = all(r["k8"].get(k, True) for r in recs if "k8" in r
+                    for k in ("bit_equal", "back_to_back_bit_equal"))
+        return 0 if k8_ok and all(r["equal_to_single"] for r in recs) else 1
     if a.versus_single:
         if device == "cuda":  # each rank's card, as run_worker picks it
             n = torch.cuda.device_count()
@@ -504,7 +638,7 @@ def main(argv=None) -> int:
                       init_method=a.init_method, halo_impl=impls,
                       config=a.config, meshes=meshes, seeds=seeds,
                       timing_iters=a.timing_iters, out_dir=a.out_dir,
-                      timeout=a.timeout)
+                      timeout=a.timeout, halo_calls=a.halo_calls)
     except RuntimeError as e:
         print(f"multiprocess decode failed: {e}", file=sys.stderr)
         return 1

@@ -932,6 +932,40 @@ def test_halo_kernel_rejects_what_it_cannot_take():
         k8.ring_shift_right([[x]] * 65, big)
 
 
+def _rows_with_halo_views(devices, S, H, T):
+    """Stage A's row buffers, one [S, H + T] row a shard on its device,
+    filled with 7; returns (rows, the [S, H] halo column views)."""
+    rows = [torch.full((S, H + T), 7.0, dtype=torch.complex64, device=d)
+            for d in devices]
+    return rows, [r[:, :H] for r in rows]
+
+
+@pytest.mark.parametrize("cards", [1, 2], ids=["one_card", "across_cards"])
+def test_halo_kernel_writes_into_stage_a_rows(cards):
+    """ring_shift_right(..., out=) writes each received halo straight into
+    the [S, H] halo columns of a row buffer (row stride H + T), on one
+    card and with the shards cycling over the cards; the rest of each row
+    stays as it was."""
+    devs = require_cuda_devices(cards)[:cards]
+    n_time, S, H, T = 4, 2, 2047, 3000
+    flat = [devs[t % cards] for t in range(n_time)]
+    m = pmesh.make_mesh(n_time, 1, devices=flat)
+    blocks = _halo_grid(m.devices, (n_time, 1), H, 60 + cards)
+    parts = [[b[:, -H:] for b in row] for row in blocks]
+    rows, views = _rows_with_halo_views(flat, S, H, T)
+    out = [[v] for v in views]
+    before = k8.ring_shift_right.launches
+    got = k8.ring_shift_right(parts, m, out=out)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    assert k8.ring_shift_right.launches - before == cards
+    ref = k8.ring_shift_right_reference(parts, m)
+    for t in range(n_time):
+        assert got[t][0].data_ptr() == views[t].data_ptr()
+        assert torch.equal(rows[t][:, :H], ref[t][0].to(flat[t])), t
+        assert bool((rows[t][:, H:] == 7).all()), t
+
+
 def test_make_mesh_takes_the_cuda_devices():
     require_cuda()
     m = pmesh.make_mesh()
@@ -1791,7 +1825,7 @@ def test_sharded_decode_across_processes_on_one_card(tmp_path):
     recs = mp.launch(2, 2, device="cuda:0", backend="gloo",
                      init_method=f"file://{tmp_path}/store",
                      halo_impl=("pallas_dma", "ppermute"), config="tiny",
-                     meshes=((4, 1), (2, 2)), timeout=180.0)
+                     meshes=((4, 1), (2, 2)), timeout=180.0, halo_calls=20)
     assert len(recs) == 8
     for r in recs:
         assert r["equal_to_single"] and r["ser_percent"] == [0.0, 0.0], r
@@ -1799,6 +1833,9 @@ def test_sharded_decode_across_processes_on_one_card(tmp_path):
         if r["halo_impl"] == "pallas_dma":
             assert k8_launches == 1 and r["launches"]["sc_metric"] == 1, r
             assert r["k8"]["bit_equal"] and r["k8"]["max_abs_err"] == 0.0
+            assert r["k8"]["back_to_back_bit_equal"], r
+            assert r["k8"]["host_syncs_per_call"] == 0, r
+            assert r["k8"]["launches_per_call"] == 1, r
         else:
             assert k8_launches == 0, r
 
@@ -1871,3 +1908,191 @@ def test_ipc_export_open_close_round_trip(tmp_path):
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err
         assert out.strip().endswith("ok")
+
+
+# one rank of K8's cross-process exchange: `calls` back-to-back calls on
+# fresh seeded halos written into stage A's rows, with no host sync
+# between them (barriers, synchronizes and copies raise meanwhile); rank 0
+# (a publisher) queues a sleep before every `sleep_every`-th call
+PROCESS_HALO_CALLS = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from rub_mimo_tpu_torch.kernels import halo_dma as k8
+from rub_mimo_tpu_torch.parallel import mesh as pmesh
+
+rank, world, per, calls, sleep_every = map(int, sys.argv[1:6])
+store, backend = sys.argv[6], sys.argv[7]
+dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+torch.cuda.set_device(dev)
+dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                        world_size=world)
+n_time, S, H, T = world * per, 2, 2047, 3000
+mesh = pmesh.make_mesh(n_time, 1, devices=[dev] * per)
+mine = [t for t, _ in mesh.local_shards()]
+ex = k8.ProcessHalo(mesh, S, H)
+rng = np.random.default_rng(7)
+cases = []
+for _ in range(calls):
+    every = (rng.standard_normal((n_time, S, T))
+             + 1j * rng.standard_normal((n_time, S, T))).astype(np.complex64)
+    tails = [[torch.as_tensor(every[t], device=dev)[:, -H:]
+              if t in mine else None] for t in range(n_time)]
+    rows = torch.full((len(mine), S, H + T), 7.0, dtype=torch.complex64,
+                      device=dev)
+    out = [[rows[mine.index(t), :, :H] if t in mine else None]
+           for t in range(n_time)]
+    want = [np.zeros((S, H), np.complex64) if t == 0 else every[t - 1][:, -H:]
+            for t in mine]
+    cases.append((tails, rows, out, want))
+torch.cuda.synchronize()
+dist.barrier()
+
+
+def refuse(*a, **k):
+    raise AssertionError("a host synchronization in the steady state")
+
+
+saved = [(dist, "barrier"), (torch.cuda.Stream, "synchronize"),
+         (torch.cuda, "synchronize"), (torch.Tensor, "copy_")]
+saved = [(o, n, getattr(o, n)) for o, n in saved]
+for o, n, _ in saved:
+    setattr(o, n, refuse)
+before = k8.ring_shift_right.launches
+try:
+    for i, (tails, _, out, _) in enumerate(cases):
+        if sleep_every and rank == 0 and i % sleep_every == 0:
+            torch.cuda._sleep(20_000_000)
+        assert ex(tails, out=out) is out
+finally:
+    for o, n, fn in saved:
+        setattr(o, n, fn)
+assert k8.ring_shift_right.launches - before == calls
+assert ex.epoch == calls
+torch.cuda.synchronize()
+for c, (_, rows, _, want) in enumerate(cases):
+    got = rows.cpu().numpy()
+    for i, t in enumerate(mine):
+        assert np.array_equal(got[i, :, :H], want[i]), (c, t)
+        assert (got[i, :, H:] == 7).all(), (c, t)
+ex.close()
+dist.destroy_process_group()
+print("ok", calls)
+"""
+
+
+def _run_ranks(script: str, argvs: list, timeout: float = 240.0) -> list:
+    """Run ``script`` once per argv, as processes of this checkout; their
+    (return code, stdout, stderr), every process ended."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, *map(str, argv)], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
+@pytest.mark.parametrize("sleep_every", [0, 50], ids=["steady",
+                                                     "late_publisher"])
+def test_process_halo_back_to_back_on_one_card(tmp_path, sleep_every):
+    """Two gloo ranks of two shards on cuda:0: 200 back-to-back exchanges
+    with no host sync between them, each halo bit for bit in stage A's
+    rows; with a late publisher (a sleep queued before its launch) the
+    reader still gets that call's halo."""
+    require_cuda()
+    res = _run_ranks(PROCESS_HALO_CALLS, [
+        (r, 2, 2, 200, sleep_every, tmp_path / "store", "gloo")
+        for r in range(2)])
+    for rc, out, err in res:
+        assert rc == 0, err[-3000:]
+        assert out.strip().endswith("ok 200")
+
+
+@pytest.mark.parametrize("sleep_every", [0, 50], ids=["steady",
+                                                     "late_publisher"])
+def test_process_halo_back_to_back_across_cards(tmp_path, sleep_every):
+    """One NCCL rank a card (every card present, one shard each): 200
+    back-to-back exchanges, each halo pulled over NVLink bit for bit."""
+    devs = require_cuda_devices(2)
+    res = _run_ranks(PROCESS_HALO_CALLS, [
+        (r, len(devs), 1, 200, sleep_every, tmp_path / "store", "nccl")
+        for r in range(len(devs))])
+    for rc, out, err in res:
+        assert rc == 0, err[-3000:]
+        assert out.strip().endswith("ok 200")
+
+
+# the reader rank of two on cuda:0 calls with a 0.5 s limit while its
+# publisher never calls: its next synchronize raises, and so do its later
+# calls
+PROCESS_HALO_TIMEOUT = r"""
+import os, sys, time
+import torch
+import torch.distributed as dist
+from rub_mimo_tpu_torch.kernels import halo_dma as k8
+from rub_mimo_tpu_torch.parallel import mesh as pmesh
+
+rank, store = int(sys.argv[1]), sys.argv[2]
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                        world_size=2)
+mesh = pmesh.make_mesh(4, 1, devices=[dev] * 2)
+S, H = 2, 2047
+ex = k8.ProcessHalo(mesh, S, H, timeout_s=0.5)
+if rank == 1:
+    x = torch.ones((S, H), dtype=torch.complex64, device=dev)
+    parts = [[None], [None], [x], [x]]
+    out = [[None], [None], [torch.empty_like(x)], [torch.empty_like(x)]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex(parts, out=out)
+    try:
+        torch.cuda.synchronize()
+        print("no error", flush=True)
+    except RuntimeError as e:
+        print("raised after", time.perf_counter() - t0, flush=True)
+        for _ in range(2):
+            try:
+                ex(parts, out=out)
+                print("call returned", flush=True)
+            except RuntimeError:
+                print("call raised", flush=True)
+dist.barrier()
+print("done", flush=True)
+os._exit(0)
+"""
+
+
+def test_process_halo_late_past_the_limit_raises(tmp_path):
+    """A peer that never calls: the reader's kernel traps once its wait
+    passes the 0.5 s limit, its next synchronize raises well within the
+    test's own limit (no hang), and every later call raises (the epochs
+    are apart).  Each rank is its own process: the trap ends the
+    reader's context."""
+    require_cuda()
+    res = _run_ranks(PROCESS_HALO_TIMEOUT,
+                     [(r, tmp_path / "store") for r in range(2)],
+                     timeout=120.0)
+    for rc, out, err in res:
+        assert rc == 0, err[-3000:]
+        assert out.strip().endswith("done")
+    lines = res[1][1].splitlines()
+    raised = [ln for ln in lines if ln.startswith("raised after")]
+    assert raised, res[1][1]
+    assert 0.5 <= float(raised[0].split()[-1]) < 30.0
+    assert [ln for ln in lines if ln.startswith("call ")] == [
+        "call raised"] * 2
