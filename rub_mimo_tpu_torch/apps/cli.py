@@ -14,7 +14,9 @@ Port of rub_mimo_tpu/apps/cli.py, with the same flags and exit codes:
 Every command but `send` runs on the CUDA device; --cpu runs it on the
 CPU instead.  Without CUDA and without --cpu the command stops with
 exit code 2: nothing falls back to the CPU.  --trace-dir writes a
-torch.profiler trace (a Chrome trace, trace.json).  The flags mirror the
+torch.profiler trace (a Chrome trace, trace.json) and beside it the
+program's spans, set-up spans, counters and device marks with each
+marked decode's stage µs (spans.json; utils/profiling.py).  The flags mirror the
 reference's boost::program_options (mimo/main.cc:174-250); --repeat is
 run_exe.sh's loop (mimo/apps/run_exe.sh:1-6).
 """
@@ -111,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                        help="print per-stage timings and samples/s")
         p.add_argument("--trace-dir", type=Path, default=None,
                        help="write a torch.profiler trace here "
-                            "(trace.json)")
+                            "(trace.json) and the program's spans and "
+                            "device marks (spans.json)")
         p.add_argument("--arb32opt-table", type=Path, default=None,
                        help="install an exact external 32-point table "
                             "into the ARB32OPT slot (.npy/.json/.txt; "

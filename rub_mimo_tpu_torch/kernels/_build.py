@@ -11,7 +11,9 @@ source, every shared header ``csrc/*.cuh`` and the flags, so an edit to
 either rebuilds) and loaded with ctypes.  ``build_all`` compiles several
 sources at once, one nvcc each.  Only sources in this package are built.
 Nothing here runs at import: the package imports on machines without nvcc
-or a GPU.
+or a GPU.  A library's load is a set-up span ``setup.kernel_load`` (its
+name the span's detail; nvcc's build, where it runs, inside it;
+utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from rub_mimo_tpu_torch.utils import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "kernels" / "csrc"
@@ -92,4 +96,5 @@ def build(name: str) -> Path:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu's library."""
-    return ctypes.CDLL(str(build(name)))
+    with profiling.setup_span("setup.kernel_load", name):
+        return ctypes.CDLL(str(build(name)))

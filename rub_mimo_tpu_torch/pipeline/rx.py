@@ -69,6 +69,7 @@ from rub_mimo_tpu_torch.kernels import eq_demap as eq_demap_mod
 from rub_mimo_tpu_torch.kernels import payload_fused
 from rub_mimo_tpu_torch.ofdm import constellation, sctype
 from rub_mimo_tpu_torch.sync import matched_filter, schmidl_cox, xcorr_sync
+from rub_mimo_tpu_torch.utils import profiling
 from rub_mimo_tpu_torch.utils.device import on_device
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
@@ -300,14 +301,23 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
     "pallas" (sync.schmidl_cox.synchronize).  payload_impl: the payload
     tail (see the module note).  keep_debug keeps the sync metric (the
     full-rate scan's; none under "pallas") and the matched filter's
-    traces; keep_rx_sig=False drops the equalized symbols."""
+    traces; keep_rx_sig=False drops the equalized symbols.
+
+    While spans are on, a device mark is launched at each stage bound
+    (utils/profiling.py MARKS): the planes' complex capture, sync (and
+    the fallback and coarse CFO), timing (region and matched filter, the
+    residual CFO), channel (LS, smoothing, the detector weights), the
+    payload window (and K7 on the strip tails), the tail."""
     check_supported(cfg, payload_impl)
+    mark = profiling.marker((iq[0] if isinstance(iq, tuple) else iq).device)
+    mark(0)
     if isinstance(iq, tuple):
         re, im = iq
         planes = (re, im)
         iq = torch.complex(re, im)
     else:
         planes = None
+    mark(1)
     S = cfg.num_streams
     M = cfg.M
     sym = cfg.symbol_len
@@ -331,6 +341,7 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
         coarse_cfo = torch.where(use_fb, zero, sync.cfo_hat)
         iq = schmidl_cox.correct_cfo(iq, coarse_cfo, M)
         planes = None
+    mark(2)
     region = _extract_region(iq, sync_index, cfg)
 
     joint = (not cfg.bit_exact) and cfg.timing_mode == "joint"
@@ -348,11 +359,13 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
         mf = matched_filter.search(region, cfg, joint=joint,
                                    keep_traces=keep_debug)
         cfo_total = coarse_cfo + residual
+    mark(3)
     G = ls.estimate_channel(region, mf.ac_index, cfg)
     if cfg.smooth_channel:
         G = smooth.smooth_channel_estimate(G, cfg)
     G_occ = occupied_channel(G, cfg)
     W, gain = weights_mod.weights_for(cfg, G, G_occ, region, mf.ac_index)
+    mark(4)
 
     # the payload starts at the last access code's peak + M on the last
     # rx stream (the reference hardcodes rx index 1, framing.cc:857)
@@ -375,6 +388,7 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
             if cfg.correct_cfo:
                 payload = derotate_payload(payload, residual, decode_start, M)
             p_re, p_im = payload.real.contiguous(), payload.imag.contiguous()
+        mark(5)
         rx_sig, rx_data = payload_fused.payload_fused_strip(
             p_re, p_im, W, gain, table, norm, n_sym=n_sym, symbol_len=sym,
             cp_len=cfg.cp_len, emit_sig=keep_rx_sig)
@@ -382,6 +396,7 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
         x_t = strip_payload(iq, planes, cstart, cfg)
         if cfg.correct_cfo:
             x_t = derotate_symbols(x_t, residual, decode_start, cfg)
+        mark(5)
         if payload_impl == "fused" and kernel_applicable(cfg, "fused"):
             rx_sig, rx_data = payload_fused.payload_fused(
                 x_t, W, gain, table, norm, emit_sig=keep_rx_sig)
@@ -399,6 +414,9 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
     # a symbol is valid when it lies wholly inside the capture
     win_valid = (T + sym) - sync_index
     ends = decode_start + (torch.arange(n_sym, device=iq.device) + 1) * sym
+    symbol_valid = (ends <= win_valid) & synced
+    rx_data = rx_data.reshape(S, -1)
+    mark(6)
     return DecodeResult(
         synced=synced,
         sync_index=sync_index,
@@ -414,8 +432,8 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
         ac_index=mf.ac_index,
         decode_start=decode_start,
         rx_sig=None if rx_sig is None else rx_sig.reshape(S, -1),
-        rx_data=rx_data.reshape(S, -1),
-        symbol_valid=(ends <= win_valid) & synced,
+        rx_data=rx_data,
+        symbol_valid=symbol_valid,
         metric=sync.metric,
         mf_traces=mf.traces,
         Y=Y,
@@ -472,16 +490,24 @@ class CapturedDecode:
     freed, since the graph reads them by address) and fills the
     allocator, then captured.  A decode that reads back to the host, or
     uploads from pageable host memory, cannot be captured and raises
-    here."""
+    here.  The warm decodes launch no device marks; the graph holds them
+    if spans are on (utils/profiling.py).  Set-up spans: ``setup.graph``
+    and its children ``setup.warm_decode`` (each)."""
 
     def __init__(self, fn, first, device: torch.device):
+        profiling.count("serve.graph_captures")
+        with profiling.setup_span("setup.graph"):
+            self._build(fn, first, device)
+
+    def _build(self, fn, first, device: torch.device) -> None:
         self.inputs = [x.clone() for x in first]
         with torch.cuda.device(device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), profiling.no_marks():
                 for _ in range(WARMUP_DECODES):
-                    fn(*self.inputs)
+                    with profiling.setup_span("setup.warm_decode"):
+                        fn(*self.inputs)
             torch.cuda.current_stream().wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             # an unreachable graph (an earlier serving decoder's, held in
@@ -498,13 +524,13 @@ class CapturedDecode:
                 if collecting:
                     gc.enable()
 
-    def replay(self, *captures) -> DecodeResult:
-        """Copy ``captures`` into the static inputs and replay: the
-        result is the static outputs, valid until the next replay."""
+    def copy_in(self, *captures, rec=None) -> None:
+        """Copy ``captures`` into the static inputs; each copy counts in
+        ``serve.copies`` and ``serve.bytes`` while ``rec`` records."""
         for buf, x in zip(self.inputs, captures):
             buf.copy_(x)
-        self.graph.replay()
-        return self.outputs
+            if rec is not None:
+                rec.copied(buf.nbytes)
 
 
 def _stack_results(results) -> DecodeResult:
@@ -533,7 +559,17 @@ def make_serving_decoder(cfg: ModemConfig, *, device,
     "pallas" (K5; not with a sync_quorum, which K5 does not take) or
     "xla" (the full-rate scan, K6); "coarse" reads its early exit back
     and raises ValueError.  A capture that fails raises; nothing falls
-    back to eager code.  On the CPU the eager decode runs per capture."""
+    back to eager code.  On the CPU the eager decode runs per capture.
+
+    While spans record (utils/profiling.py) each call is a span
+    ``serve`` (one sequence number a capture) with children
+    ``serve.prepare`` (the stacks, the graph's lookup or build, the
+    outputs' allocation), and per capture ``serve.copy_in``,
+    ``serve.replay`` (the graph's launch) and ``serve.copy_out``; the
+    counters ``serve.captures``, ``serve.copies`` and ``serve.bytes``
+    count the captures and, where each is issued, the eager copies and
+    their bytes (a stack that ``torch.as_tensor`` moves or converts, the
+    inputs in, the outputs out)."""
     check_supported(cfg, payload_impl)
     if sync_impl not in schmidl_cox.IMPLS:
         raise ValueError(f"unknown sync_impl {sync_impl!r}")
@@ -557,16 +593,38 @@ def make_serving_decoder(cfg: ModemConfig, *, device,
         return r._replace(metric=None, mf_traces=None)
 
     def serve(*stacks) -> DecodeResult:
+        rec = profiling.recording()
+        if rec is None:
+            return _serve(stacks, None)
+        rec.next_seq()
+        top = rec.begin("serve")
+        try:
+            return _serve(stacks, rec)
+        finally:
+            rec.finish(top)
+
+    def _serve(stacks, rec) -> DecodeResult:
+        if rec is not None:
+            span = rec.begin("serve.prepare")
         if len(stacks) != (2 if planes else 1):
             raise ValueError(f"input_format {input_format!r} takes "
                              f"{2 if planes else 1} stacks, got {len(stacks)}")
+        given = stacks
         stacks = [torch.as_tensor(s, dtype=dtype, device=device)
                   for s in stacks]
+        if rec is not None:
+            for g, s in zip(given, stacks):
+                if profiling.copied_by_as_tensor(g, s):
+                    rec.copied(s.nbytes)
         shape = tuple(stacks[0].shape)
         if len(shape) != 3 or any(tuple(s.shape) != shape for s in stacks):
             raise ValueError("make_serving_decoder: expected [batch, S, T] "
                              f"stacks, got {[tuple(s.shape) for s in stacks]}")
         if device.type != "cuda":
+            if rec is not None:
+                rec.finish(span)
+                rec.add("serve.captures", shape[0])
+                rec.seq += shape[0] - 1
             return _stack_results([one(*(s[i] for s in stacks))
                                    for i in range(shape[0])])
         graph = serve.graphs.get(shape[1:])
@@ -576,11 +634,29 @@ def make_serving_decoder(cfg: ModemConfig, *, device,
         out = [None if o is None else torch.empty(
             (shape[0], *o.shape), dtype=o.dtype, device=o.device)
             for o in graph.outputs]
+        if rec is not None:
+            rec.finish(span)
+            rec.add("serve.captures", shape[0])
         for i in range(shape[0]):
-            r = graph.replay(*(s[i] for s in stacks))
-            for o, v in zip(out, r):
+            if rec is not None:
+                if i:
+                    rec.next_seq()
+                span = rec.begin("serve.copy_in")
+            graph.copy_in(*(s[i] for s in stacks), rec=rec)
+            if rec is not None:
+                rec.finish(span)
+                span = rec.begin("serve.replay")
+            graph.graph.replay()
+            if rec is not None:
+                rec.finish(span)
+                span = rec.begin("serve.copy_out")
+            for o, v in zip(out, graph.outputs):
                 if o is not None:
                     o[i].copy_(v)
+                    if rec is not None:
+                        rec.copied(v.nbytes)
+            if rec is not None:
+                rec.finish(span)
         return DecodeResult(*out)
 
     serve.graphs = {}  # capture shape (S, T) -> CapturedDecode
