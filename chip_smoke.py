@@ -147,8 +147,9 @@ checked-in golden capture, times the decodes and the kernels with CUDA
 events, and breaks the default decode down by stage (CUDA events per
 stage, torch.profiler for the device's busy time), and times each
 payload_impl's whole tail (strip to decisions) on the card, the payload
-window's gather at a device start against the copy at host ints it
-replaced (payload_window), K6 at its
+window's gather at a device start against a copy at host ints, and K1
+reading that window from the planes against K1 on the gathered window
+(payload_window), K6 at its
 three shapes beside its persistent grid (its times before its
 redesign are quoted there, labelled as not measured by this run:
 K6_BEFORE_QUOTED), K4 on one track_channel block, K1 and
@@ -2879,6 +2880,21 @@ def main() -> None:
           "sync_index": rep.sync_index, "ser_percent": rep.symbol_error_rate,
           "evm_percent": rep.evm_percent, "launches": counts,
           "k1_launches_per_decode": launches, **e2e})
+    # K1 as the decode calls it, on the capture's planes at the window's
+    # device start, against its plain version on the same planes and start
+    cstart_dev = torch.clamp(r.sync_index, 0, T) + r.decode_start - sym
+
+    def k1_window():
+        return pf.payload_fused_strip(re, im, r.W, r.normalize_gain, tab,
+                                      norm, start=cstart_dev, **kw)
+
+    def k1_window_plain():
+        return pf.payload_tail_reference(re, im, r.W, r.normalize_gain, tab,
+                                         norm, start=cstart_dev, **kw)
+
+    win_cmp = compare(*k1_window(), *k1_window_plain(), tab)
+    emit({"phase": "k1_window_vs_plain", "planes": [S, T], "start": cstart,
+          "start_mod_4": cstart % 4, **win_cmp})
 
     # ---- phase 6: the same decode with the one-pass sync kernel K5 ----
     dec_pallas = rx.make_decoder(cfg, device=dev, input_format="planes",
@@ -3282,11 +3298,8 @@ def main() -> None:
     k7p, _, k7sym, k7cp = k7_args = cases["cp_strip"]["args"]
     op_stack = torch.stack([row[0] for row in op_halos])  # [4, S, M-1]
     calls = {
-        "payload_fused_strip": (
-            lambda: pf.payload_fused_strip(p_re, p_im, r.W, r.normalize_gain,
-                                           tab, norm, **kw),
-            lambda: pf.payload_tail_reference(
-                p_re, p_im, r.W, r.normalize_gain, tab, norm, **kw), None),
+        # as the decode calls it: the capture's planes at the window start
+        "payload_fused_strip": (k1_window, k1_window_plain, None),
         "payload_fused": (
             lambda: pf.payload_fused(*cases["payload_fused"]["args"]),
             lambda: pf.payload_fused_reference(
@@ -3494,8 +3507,7 @@ def main() -> None:
     W_op, g_op = r.W, r.normalize_gain
     tails = {
         "auto": lambda: pf.payload_fused_strip(
-            *(rx.extract_payload(p, cstart, n_sym * sym) for p in (re, im)),
-            W_op, g_op, tab, norm, **kw),
+            re, im, W_op, g_op, tab, norm, start=cstart_dev, **kw),
         "fused": lambda: pf.payload_fused(strip(), W_op, g_op, tab, norm),
         "eqdemap": lambda: k34.eq_demap(
             torch.fft.fft(strip(), dim=-1) * float(norm), W_op, g_op, tab),
@@ -3506,15 +3518,17 @@ def main() -> None:
                     "event_ms": cuda_ms(f)["median_ms"]}
              for impl, f in tails.items()}})
 
-    # the payload window at a device start (the decode's gather: one
-    # index for both planes) against the copy at host ints it replaced,
-    # on the operating point's planes and start
-    cstart_dev = (torch.clamp(r.sync_index, 0, T) + r.decode_start - sym)
+    # the payload window at a device start (a gather: one index for both
+    # planes) against a copy at host ints, on the operating point's
+    # planes and start; and K1 reading that window from the planes (as
+    # the decode runs it) against K1 on the gathered window, at the
+    # start and at the four starts s - s mod 4 + m (each offset of its
+    # 16-byte copies in their span)
     plen = n_sym * sym
 
-    def window_gather():
-        win = rx.window_index(cstart_dev, plen, T, dev)
-        return [rx.gather_window(p, *win) for p in (re, im)]
+    def window_gather(start=cstart_dev):
+        win = rx.window_index(start, plen, T, dev)
+        return [rx.gather_window(p, win) for p in (re, im)]
 
     def window_copy():
         lo = min(max(-cstart, 0), plen)
@@ -3532,9 +3546,42 @@ def main() -> None:
                                                    window_copy())),
             "the payload window's gather differs from its copy")
     gather_us, copy_us = profiled_us(window_gather), profiled_us(window_copy)
+    compact = window_gather()
+
+    def k1_compact():
+        return pf.payload_fused_strip(*compact, W_op, g_op, tab, norm, **kw)
+
+    require(all(torch.equal(a, b) for a, b in zip(k1_window(),
+                                                   k1_compact())),
+            "K1 on the capture at the window start differs from K1 on the "
+            "gathered window")
+    k1_window_us, k1_compact_us = (profiled_us(k1_window),
+                                   profiled_us(k1_compact))
+    by_mod = {}
+    for m in range(4):
+        start = cstart_dev - cstart % 4 + m
+
+        def k1_at(start=start):
+            return pf.payload_fused_strip(re, im, W_op, g_op, tab, norm,
+                                          start=start, **kw)
+
+        want = pf.payload_fused_strip(*window_gather(start), W_op, g_op,
+                                      tab, norm, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(k1_at(), want)),
+                f"K1 at a start {m} mod 4 differs from K1 on its gathered "
+                "window")
+        # between two timings of the compact form, so that a change of
+        # the card's clock during the sweep does not read as a start's
+        before, at, after = (profiled_us(f) for f in (k1_compact, k1_at,
+                                                      k1_compact))
+        by_mod[f"mod{m}"] = at - (before + after) / 2
     emit({"phase": "payload_window", "card": card, "planes": [2, S, plen],
           "gather_device_us": gather_us, "copy_device_us": copy_us,
           "gather_minus_copy_us": gather_us - copy_us,
+          "k1_window_device_us": k1_window_us,
+          "k1_compact_device_us": k1_compact_us,
+          "k1_window_minus_compact_us": k1_window_us - k1_compact_us,
+          "k1_window_minus_compact_us_by_start_mod_4": by_mod,
           "gather_event_ms": cuda_ms(window_gather)["median_ms"],
           "copy_event_ms": cuda_ms(window_copy)["median_ms"]})
 
@@ -3583,11 +3630,12 @@ def main() -> None:
         tab_m = constellation.table(mod)
 
         def k1_mod(tab_m=tab_m):
-            return pf.payload_fused_strip(p_re, p_im, r.W, r.normalize_gain,
-                                          tab_m, norm, **kw)
+            return pf.payload_fused_strip(re, im, r.W, r.normalize_gain,
+                                          tab_m, norm, start=cstart_dev, **kw)
 
         m_cmp = compare(*k1_mod(), *pf.payload_tail_reference(
-            p_re, p_im, r.W, r.normalize_gain, tab_m, norm, **kw), tab_m)
+            re, im, r.W, r.normalize_gain, tab_m, norm, start=cstart_dev,
+            **kw), tab_m)
         sweep[mod.name] = {"points": len(tab_m), "warm_ms": event_ms(k1_mod),
                            "mismatches": m_cmp["mismatches"]}
     k12["payload_fused_strip_by_modulation"] = sweep
@@ -3666,7 +3714,7 @@ def main() -> None:
         "soft_llr_rows": coded["counts"]["soft_llr_rows"],
     }
     errors = {
-        "payload_fused_strip": main_cmp["max_abs_err"],
+        "payload_fused_strip": win_cmp["max_abs_err"],
         "payload_fused": cases["payload_fused"]["max_abs_err"],
         "eq_demap": cases["eq_demap"]["max_abs_err"],
         "demap": k4_cmp["max_abs_err"],
@@ -3685,6 +3733,9 @@ def main() -> None:
         + S * n_shard * M * (8 + 4),
         tail_flops(S, n_shard, M, K_op, fft=True))["bound_ms"]
     extra = {"payload_fused_strip": {
+                 # the compact form (a flat payload, random planes)
+                 "compact_ms": k1_compact_us * 1e-3,
+                 "compact_max_abs_err": main_cmp["max_abs_err"],
                  "cold_l2_ms": k12["payload_fused_strip"]["cold_l2_ms"],
                  "warm_event_ms": k12["payload_fused_strip"]["warm_ms"],
                  "shard_4x1_ms": k12["payload_fused_strip_shard_4x1"][

@@ -27,7 +27,8 @@
 //     16, so the first pass's stride-16 writes and the stride-1, -2 and
 //     -4 reads are free of bank conflicts.
 //   - Two-stage (S * M <= 4096; 85 KB at M = 2048, S = 2, two blocks per
-//     SM): a natural-order `stage` buffer [S][M] beside `work`.  Frame
+//     SM): a natural-order `stage` buffer [S][M] (plus the input side's
+//     slack) beside `work`.  Frame
 //     k + grid is copied into it (16-byte cp.async where the source rows
 //     are 16-byte aligned, else 4- or 8-byte) as soon as the first pass
 //     has read frame k out of it, so the copy overlaps the rest of frame
@@ -103,13 +104,14 @@ __host__ __device__ __forceinline__ int twiddle_slots(int n_tw) {
 }
 
 // S * M / 16 threads (one FFT slice each) rounded up to whole warps;
-// shared memory for work, the twiddles and, two-stage, the stage.
-inline Geometry geometry(int S, int M, int n_tw) {
+// shared memory for work, the twiddles and, two-stage, the stage with
+// `slack` float2 beyond its S * M (the input side's own margin).
+inline Geometry geometry(int S, int M, int n_tw, int slack = 0) {
   Geometry g;
   g.two_stage = S * M <= kTwoStageMax;
   g.threads = (S * M / kP + 31) & ~31;
   g.smem = (int)sizeof(float2) * (S * row_stride(M) + twiddle_slots(n_tw) +
-                                  (g.two_stage ? S * M : 0));
+                                  (g.two_stage ? S * M + slack : 0));
   return g;
 }
 

@@ -30,6 +30,7 @@ import torch
 
 from rub_mimo_tpu_torch.detect import zf
 from rub_mimo_tpu_torch.ofdm import constellation
+from rub_mimo_tpu_torch.utils import gather
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
 
 MAX_POINTS = 64
@@ -140,13 +141,19 @@ def payload_tail_reference(p_re: torch.Tensor, p_im: torch.Tensor,
                            W: torch.Tensor, gain: torch.Tensor,
                            table: np.ndarray, dft_norm: float, *,
                            n_sym: int, symbol_len: int, cp_len: int,
-                           M: Optional[int] = None, emit_sig: bool = True):
-    """Plain PyTorch payload tail: reshape-strip the CPs (the M samples
-    after each CP), torch.fft.fft, scale by dft_norm, detect.zf.equalize,
-    hard demap over ``table``.  Same arguments and results as
-    ``payload_fused_strip``."""
+                           M: Optional[int] = None, emit_sig: bool = True,
+                           start=None):
+    """Plain PyTorch payload tail: with a ``start``, the window
+    (``utils.gather.gather_window``) first; then reshape-strip the CPs
+    (the M samples after each CP), torch.fft.fft, scale by dft_norm,
+    detect.zf.equalize, hard demap over ``table``.  Same arguments and
+    results as ``payload_fused_strip``."""
     S = p_re.shape[0]
     M = symbol_len - cp_len if M is None else M
+    if start is not None:
+        win = gather.window_index(start, n_sym * symbol_len,
+                                  p_re.shape[-1], p_re.device)
+        p_re, p_im = (gather.gather_window(p, win) for p in (p_re, p_im))
     x = torch.complex(p_re, p_im)[:, : n_sym * symbol_len]
     x = x.reshape(S, n_sym, symbol_len)[:, :, cp_len:cp_len + M]
     X = torch.fft.fft(x, dim=-1) * float(dft_norm)
@@ -161,7 +168,7 @@ def _kernel_fn():
 
     fn = _build.load("payload_fused_strip").payload_fused_strip
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, ctypes.c_longlong, P, P, P, I, P, I, P,
+    fn.argtypes = [P, P, ctypes.c_longlong, P, P, P, P, I, P, I, P,
                    ctypes.c_float, I, I, I, I, I, I, P, P, P]
     fn.restype = I
     return fn
@@ -209,12 +216,19 @@ def _twiddles(M: int, device: torch.device) -> torch.Tensor:
                            device=device)
 
 
-def _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len, M=None):
+def _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len, M=None,
+           start=None):
     S = p_re.shape[0]
     M = symbol_len - cp_len if M is None else M
+    plane = (S, n_sym * symbol_len if start is None else p_re.shape[-1])
+    if start is not None and not (
+            isinstance(start, torch.Tensor) and start.dtype == torch.int64
+            and start.numel() == 1 and start.device == p_re.device):
+        raise ValueError("start must be a one-element int64 tensor on the "
+                         "planes' device")
     for name, t, dt, shape in (
-        ("p_re", p_re, torch.float32, (S, n_sym * symbol_len)),
-        ("p_im", p_im, torch.float32, (S, n_sym * symbol_len)),
+        ("p_re", p_re, torch.float32, plane),
+        ("p_im", p_im, torch.float32, plane),
         ("W", W, torch.complex64, (M, S, S)),
         ("gain", gain, torch.float32, (M,)),
     ):
@@ -239,16 +253,23 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
                         W: torch.Tensor, gain: torch.Tensor,
                         table: np.ndarray, dft_norm: float, *,
                         n_sym: int, symbol_len: int, cp_len: int,
-                        M: Optional[int] = None, emit_sig: bool = True):
-    """Payload tail over the flat payload planes.
+                        M: Optional[int] = None, emit_sig: bool = True,
+                        start=None):
+    """Payload tail over the flat payload planes, or over a window of a
+    whole capture's planes.
 
     p_re, p_im: [S, n_sym*symbol_len] float32, CPs in place (what
-    pipeline.rx.extract_payload gives); W: [M, out, rx] complex64;
-    gain: [M] float32; table: constellation points (numpy);
-    dft_norm: 1/sqrt(M_occupied).  Symbol k's M samples start at
-    k*symbol_len + cp_len; M defaults to symbol_len - cp_len, and a
-    larger pitch (symbol_len > M + cp_len) skips the samples between
-    symbols (the sharded decode's stripe of every n_sc-th symbol).
+    pipeline.rx.extract_payload gives), or with ``start`` a capture's
+    [S, T] planes; W: [M, out, rx] complex64; gain: [M] float32; table:
+    constellation points (numpy); dft_norm: 1/sqrt(M_occupied).  Symbol
+    k's M samples start at start + k*symbol_len + cp_len (start 0 when
+    None); positions outside [0, T) read as zeros (the window
+    ``utils.gather.gather_window`` reads).  ``start`` is a one-element
+    int64 tensor on the planes' device, never read on the host, so the
+    call can be captured in a CUDA graph and replayed at another start.
+    M defaults to symbol_len - cp_len, and a larger pitch (symbol_len >
+    M + cp_len) skips the samples between symbols (the sharded decode's
+    stripe of every n_sc-th symbol).
 
     Returns (rx_sig [S, n_sym, M] complex64 | None, rx_data [S, n_sym, M]
     int32), natural order, with
@@ -261,11 +282,12 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
     if p_re.device.type == "cpu":
         return payload_tail_reference(
             p_re, p_im, W, gain, table, dft_norm, n_sym=n_sym,
-            symbol_len=symbol_len, cp_len=cp_len, M=M, emit_sig=emit_sig)
+            symbol_len=symbol_len, cp_len=cp_len, M=M, emit_sig=emit_sig,
+            start=start)
     if p_re.device.type != "cuda":
         raise ValueError(f"payload_fused_strip: no kernel for {p_re.device}")
     M = symbol_len - cp_len if M is None else M
-    _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len, M)
+    _check(p_re, p_im, W, gain, table, n_sym, symbol_len, cp_len, M, start)
     dev = p_re.device
     S = p_re.shape[0]
     fn = _kernel_fn()
@@ -277,6 +299,7 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
               if emit_sig else None)
     with torch.cuda.device(dev):
         err = fn(p_re.data_ptr(), p_im.data_ptr(), p_re.shape[1],
+                 None if start is None else start.data_ptr(),
                  W.data_ptr(), gain.data_ptr(), points.ctypes.data,
                  len(table), plan, n_pass, twiddle.data_ptr(),
                  float(dft_norm), S, M, M.bit_length() - 1, n_sym,
@@ -288,10 +311,12 @@ def payload_fused_strip(p_re: torch.Tensor, p_im: torch.Tensor,
         raise RuntimeError(
             f"payload_fused_strip kernel launch failed: CUDA error {err}")
     payload_fused_strip.launches += 1
+    payload_fused_strip.windowed += start is not None
     return rx_sig, rx_data
 
 
 payload_fused_strip.launches = 0
+payload_fused_strip.windowed = 0  # launches that read a capture's window
 
 
 def payload_fused_reference(x_t: torch.Tensor, W: torch.Tensor,

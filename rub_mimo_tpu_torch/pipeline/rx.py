@@ -16,8 +16,9 @@ Port of rub_mimo_tpu/pipeline/rx.py:
     -> payload slice from the last access code's peak + M (framing.cc:857)
     -> payload tail, one of:
        K1  CP strip + FFT + equalize + demap in one kernel
-           (kernels.payload_fused.payload_fused_strip; the flat payload
-           de-rotated by the residual CFO first)
+           (kernels.payload_fused.payload_fused_strip; on planes input
+           it reads the window from the capture's planes at the device
+           start, else the flat payload de-rotated by the residual CFO)
        or the CP strip (kernels.cp_strip, K7), the residual-CFO ramp on
        the symbols, then
        K2  FFT + equalize + demap (kernels.payload_fused.payload_fused)
@@ -41,11 +42,11 @@ pid_max frames.
 Host synchronizations on a GPU (each drains the stream): only the coarse
 sync's two early-exit tests.  Under sync_impl "xla" or "pallas" the
 decode reads nothing back: the region and payload slices start at device
-scalars (``extract_payload``), and the fallback and the CFO steps are
-computed on the device and selected with torch.where.  So those decodes
-can be captured in a CUDA graph: ``make_serving_decoder`` serves a stack
-of captures by replaying one graph per capture shape.  ``decode_all``
-decodes the bursts of one long capture one after another.
+scalars (``extract_payload``, K1's ``start``), and the fallback and the
+CFO steps are computed on the device and selected with torch.where.  So
+those decodes can be captured in a CUDA graph: ``make_serving_decoder``
+serves a stack of captures by replaying one graph per capture shape.
+``decode_all`` decodes the bursts of one long capture one after another.
 """
 
 from __future__ import annotations
@@ -72,6 +73,8 @@ from rub_mimo_tpu_torch.sync import matched_filter, schmidl_cox, xcorr_sync
 from rub_mimo_tpu_torch.utils import profiling
 from rub_mimo_tpu_torch.utils.device import on_device
 from rub_mimo_tpu_torch.utils.device_cache import device_constant
+from rub_mimo_tpu_torch.utils.gather import (gather_window, start_on,
+                                             window_index)
 
 PAYLOAD_IMPLS = ("auto", "fused_strip", "fused", "eqdemap", "xla")
 
@@ -99,38 +102,6 @@ class DecodeResult(NamedTuple):
                                    # payload grid, kept for the ML detector
 
 
-@device_constant
-def _arange_on(n: int, device: torch.device) -> torch.Tensor:
-    """[n] int32 0, 1, ..., n - 1 on ``device``, made once."""
-    return torch.arange(n, dtype=torch.int32, device=device)
-
-
-def _start_on(start, device: torch.device) -> torch.Tensor:
-    """A window start as a device int64 scalar; a Python int is filled in
-    on the device (no host-to-device copy)."""
-    if isinstance(start, torch.Tensor):
-        return start.to(device=device, dtype=torch.int64)
-    return torch.full((), int(start), dtype=torch.int64, device=device)
-
-
-def window_index(cstart, plen: int, T: int, device: torch.device):
-    """(src [plen] int32, outside [plen] bool) of the window
-    [cstart, cstart + plen) of a T-sample capture: each position's sample,
-    clamped into the capture, and whether it lies outside it.  cstart is
-    a device scalar or a Python int; nothing is read back."""
-    idx = _start_on(cstart, device) + _arange_on(plen, device)  # int32
-    src = torch.clamp(idx, 0, max(T - 1, 0))
-    return src, src != idx
-
-
-def gather_window(iq: torch.Tensor, src: torch.Tensor, outside: torch.Tensor,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """iq[:, src] [S, plen] with zeros where ``outside`` (window_index's
-    pair), into ``out`` when given.  One index serves every stream."""
-    out = torch.index_select(iq, 1, src, out=out)
-    return out.masked_fill_(outside, 0)
-
-
 def extract_payload(iq: torch.Tensor, cstart, plen: int,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``iq[:, cstart : cstart + plen]`` with the windowcf's read-zeros
@@ -139,8 +110,8 @@ def extract_payload(iq: torch.Tensor, cstart, plen: int,
     scalar (a Python int becomes one) and may be negative or past the
     end; it is never read on the host.  Written into ``out`` ([S, plen],
     iq's dtype, contiguous) when given."""
-    return gather_window(iq, *window_index(cstart, plen, iq.shape[-1],
-                                           iq.device), out=out)
+    return gather_window(iq, window_index(cstart, plen, iq.shape[-1],
+                                          iq.device), out=out)
 
 
 def _extract_region(iq: torch.Tensor, sync_index,
@@ -150,7 +121,7 @@ def _extract_region(iq: torch.Tensor, sync_index,
     [streams, symbol_len*(1 + codes*streams) + M]."""
     region_len = cfg.symbol_len * (1 + cfg.num_access_codes
                                    * cfg.num_streams) + cfg.M
-    start = (torch.clamp(_start_on(sync_index, iq.device), 0, iq.shape[-1])
+    start = (torch.clamp(start_on(sync_index, iq.device), 0, iq.shape[-1])
              - cfg.symbol_len)
     return extract_payload(iq, start, region_len)
 
@@ -245,7 +216,7 @@ def strip_payload(iq: torch.Tensor, planes, cstart,
     flat = torch.empty((2 * S, plen), dtype=torch.float32, device=dev)
     win = window_index(cstart, plen, planes[0].shape[-1], dev)
     for i, p in enumerate(planes):
-        gather_window(p, *win, out=flat[i * S:(i + 1) * S])
+        gather_window(p, win, out=flat[i * S:(i + 1) * S])
     x = cp_strip_mod.cp_strip(flat, n_sym, sym, cfg.cp_len)
     return torch.complex(x[:S], x[S:])
 
@@ -307,7 +278,8 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
     (utils/profiling.py MARKS): the planes' complex capture, sync (and
     the fallback and coarse CFO), timing (region and matched filter, the
     residual CFO), channel (LS, smoothing, the detector weights), the
-    payload window (and K7 on the strip tails), the tail."""
+    payload window (its start alone where K1 reads planes; K7 on the
+    strip tails), the tail."""
     check_supported(cfg, payload_impl)
     mark = profiling.marker((iq[0] if isinstance(iq, tuple) else iq).device)
     mark(0)
@@ -381,17 +353,19 @@ def decode(iq, cfg: ModemConfig, *, keep_debug: bool = False,
     if (payload_impl in ("auto", "fused_strip")
             and kernel_applicable(cfg, payload_impl)):
         if planes is not None:
-            win = window_index(cstart, plen, T, iq.device)
-            p_re, p_im = (gather_window(p, *win) for p in planes)
+            # K1 reads the window straight from the capture's planes
+            p_re, p_im = (p.contiguous() for p in planes)
+            start = window_index(cstart, plen, T, iq.device).start
         else:
             payload = extract_payload(iq, cstart, plen)
             if cfg.correct_cfo:
                 payload = derotate_payload(payload, residual, decode_start, M)
             p_re, p_im = payload.real.contiguous(), payload.imag.contiguous()
+            start = None
         mark(5)
         rx_sig, rx_data = payload_fused.payload_fused_strip(
             p_re, p_im, W, gain, table, norm, n_sym=n_sym, symbol_len=sym,
-            cp_len=cfg.cp_len, emit_sig=keep_rx_sig)
+            cp_len=cfg.cp_len, emit_sig=keep_rx_sig, start=start)
     else:
         x_t = strip_payload(iq, planes, cstart, cfg)
         if cfg.correct_cfo:
@@ -563,9 +537,9 @@ def make_serving_decoder(cfg: ModemConfig, *, device,
 
     While spans record (utils/profiling.py) each call is a span
     ``serve`` (one sequence number a capture) with children
-    ``serve.prepare`` (the stacks, the graph's lookup or build, the
-    outputs' allocation), and per capture ``serve.copy_in``,
-    ``serve.replay`` (the graph's launch) and ``serve.copy_out``; the
+    ``serve.prepare`` (the stacks, the graph's lookup or build), and per
+    capture ``serve.copy_in``, ``serve.replay`` (the graph's launch) and
+    ``serve.copy_out`` (the first one allocates the outputs); the
     counters ``serve.captures``, ``serve.copies`` and ``serve.bytes``
     count the captures and, where each is issued, the eager copies and
     their bytes (a stack that ``torch.as_tensor`` moves or converts, the
@@ -631,12 +605,10 @@ def make_serving_decoder(cfg: ModemConfig, *, device,
         if graph is None:
             graph = serve.graphs[shape[1:]] = CapturedDecode(
                 one, [s[0] for s in stacks], device)
-        out = [None if o is None else torch.empty(
-            (shape[0], *o.shape), dtype=o.dtype, device=o.device)
-            for o in graph.outputs]
         if rec is not None:
             rec.finish(span)
             rec.add("serve.captures", shape[0])
+        out = None
         for i in range(shape[0]):
             if rec is not None:
                 if i:
@@ -650,6 +622,12 @@ def make_serving_decoder(cfg: ModemConfig, *, device,
             if rec is not None:
                 rec.finish(span)
                 span = rec.begin("serve.copy_out")
+            if out is None:
+                # allocated while the card runs the first replay, so that
+                # this host work does not delay the capture's start
+                out = [None if o is None else torch.empty(
+                    (shape[0], *o.shape), dtype=o.dtype, device=o.device)
+                    for o in graph.outputs]
             for o, v in zip(out, graph.outputs):
                 if o is not None:
                     o[i].copy_(v)

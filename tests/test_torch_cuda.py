@@ -892,6 +892,81 @@ def test_kernel_with_pitch_matches_plain_tail(M, cp, n_sym, pitch):
     assert float((sig - ref_sig).abs().max()) <= 1e-4 * rms
 
 
+# K1 reading its window from a capture at a device start: (S, M, cp,
+# n_sym) of the two-stage block's 16-byte copies, the one-stage block and
+# an odd CP (4-byte copies); the starts of tests/test_torch_payload.py
+WINDOW_GEOMETRIES = {"two_stage": (2, 2048, 152, 9),
+                     "one_stage": (4, 2048, 152, 5),
+                     "odd_cp": (2, 256, 17, 7)}
+WINDOW_STARTS = ("mod0", "mod1", "mod2", "mod3", "negative", "across_end",
+                 "past_end")
+
+
+def _window_case(dev, geometry: str):
+    """A capture's planes [S, 3 plen] (plen = n_sym (M + cp)), K1's other
+    arguments, its keywords and plen."""
+    S, M, cp, n_sym = WINDOW_GEOMETRIES[geometry]
+    (re, im, W, gain, tab, norm), kw = _tail_case(dev, M, cp, 3 * n_sym, S)
+    return (re, im, W, gain, tab, norm), dict(kw, n_sym=n_sym), n_sym * (M + cp)
+
+
+def _window_start(where: str, T: int, plen: int) -> int:
+    if where.startswith("mod"):
+        return 1000 + int(where[3:])
+    # the edges off the 16-byte grid too (T is a multiple of 4)
+    return {"negative": -plen // 3 - 1, "across_end": T - plen // 2 + 2,
+            "past_end": T + 3}[where]
+
+
+@pytest.mark.parametrize("where", WINDOW_STARTS)
+@pytest.mark.parametrize("geometry", list(WINDOW_GEOMETRIES))
+def test_windowed_kernel_equals_compact(geometry, where):
+    """K1 on a capture at a device start equals K1 on the window gathered
+    at that start, bit for bit; each launch counts in ``.launches`` and
+    the windowed one in ``.windowed`` too."""
+    dev = require_cuda()
+    (re, im, *rest), kw, plen = _window_case(dev, geometry)
+    T = re.shape[-1]
+    start = torch.tensor(_window_start(where, T, plen), device=dev)
+    counts = (pf.payload_fused_strip.launches,
+              pf.payload_fused_strip.windowed)
+    sig, data = pf.payload_fused_strip(re, im, *rest, start=start, **kw)
+    win = rx.window_index(start, plen, T, dev)
+    compact = [rx.gather_window(p, win) for p in (re, im)]
+    want_sig, want_data = pf.payload_fused_strip(*compact, *rest, **kw)
+    torch.cuda.synchronize()
+    assert (pf.payload_fused_strip.launches,
+            pf.payload_fused_strip.windowed) == (counts[0] + 2,
+                                                 counts[1] + 1)
+    assert torch.equal(data, want_data) and torch.equal(sig, want_sig)
+    if where in ("negative", "past_end"):  # frames of zeros decode alike
+        assert not bool(compact[0][:, :kw["cp_len"]].any())
+
+
+def test_windowed_kernel_replays_at_a_rewritten_start():
+    """One CUDA graph of K1 at a device start, replayed with the start
+    rewritten on the device between replays: each replay equals an
+    eager call at that start."""
+    dev = require_cuda()
+    (re, im, *rest), kw, plen = _window_case(dev, "two_stage")
+    T = re.shape[-1]
+    start = torch.zeros((), dtype=torch.int64, device=dev)
+    pf.payload_fused_strip(re, im, *rest, start=start, **kw)  # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sig, data = pf.payload_fused_strip(re, im, *rest, start=start, **kw)
+    for where in WINDOW_STARTS:
+        value = _window_start(where, T, plen)
+        start.fill_(value)
+        graph.replay()
+        want_sig, want_data = pf.payload_fused_strip(
+            re, im, *rest, start=torch.tensor(value, device=dev), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(data, want_data), where
+        assert torch.equal(sig, want_sig), where
+
+
 @pytest.mark.parametrize("shape,H", [((2, 1), 129), ((4, 1), 129),
                                      ((8, 1), 129), ((4, 2), 129),
                                      ((4, 1), 2047)])

@@ -17,6 +17,8 @@ from rub_mimo_tpu.kernels.payload_fused import (
 from rub_mimo_tpu.pipeline import rx as jrx
 from rub_mimo_tpu_torch import Modulation as PModulation
 from rub_mimo_tpu_torch import convert
+from rub_mimo_tpu_torch.detect import zf
+from rub_mimo_tpu_torch.io import simulator
 from rub_mimo_tpu_torch.kernels import _build
 from rub_mimo_tpu_torch.kernels import payload_fused as pf
 from rub_mimo_tpu_torch.ofdm import constellation
@@ -139,6 +141,85 @@ def test_extract_payload_read_zeros_matches_jax(offset):
     assert torch.equal(out[:, 10:60], short) and not out[:, 60:].any()
 
 
+# K1's window at a start in a capture of T = 3 plen samples: inside at
+# each alignment mod 4, before it, across its end and wholly past it
+_WIN_M, _WIN_CP, _WIN_NSYM = 64, 16, 6
+_WIN_PLEN = _WIN_NSYM * (_WIN_M + _WIN_CP)
+_WIN_T = 3 * _WIN_PLEN
+WINDOW_STARTS = {"inside_mod0": 40, "inside_mod1": 41, "inside_mod2": 42,
+                 "inside_mod3": 43, "negative": -150,
+                 "across_end": _WIN_T - _WIN_PLEN // 2,
+                 "past_end": _WIN_T + 5}
+
+
+@pytest.mark.parametrize("where", list(WINDOW_STARTS))
+def test_windowed_tail_equals_gather_then_compact(where):
+    """K1 given a capture's planes and a device start (its plain version
+    here) equals the decode's former path, the window gathered with
+    gather_window and then the compact call, bit for bit."""
+    S, M, cp, n_sym = 2, _WIN_M, _WIN_CP, _WIN_NSYM
+    re, im, G = oracle.random_tail_inputs(22, S, M, cp, 3 * n_sym)
+    planes = (torch.as_tensor(re), torch.as_tensor(im))
+    assert planes[0].shape == (S, _WIN_T)
+    W, gain = zf.invert(torch.as_tensor(G))
+    tab = constellation.table(PModulation.QAM16)
+    norm = np.float32(1.0 / np.sqrt(M))
+    kw = dict(n_sym=n_sym, symbol_len=M + cp, cp_len=cp)
+    start = torch.tensor(WINDOW_STARTS[where], dtype=torch.int64)
+    counts = (pf.payload_fused_strip.launches,
+              pf.payload_fused_strip.windowed)
+    sig, data = pf.payload_fused_strip(*planes, W, gain, tab, norm,
+                                       start=start, **kw)
+    win = rx.window_index(start, _WIN_PLEN, _WIN_T, torch.device("cpu"))
+    compact = [rx.gather_window(p, win) for p in planes]
+    want_sig, want_data = pf.payload_fused_strip(*compact, W, gain, tab,
+                                                 norm, **kw)
+    assert torch.equal(sig, want_sig) and torch.equal(data, want_data)
+    assert (pf.payload_fused_strip.launches,
+            pf.payload_fused_strip.windowed) == counts  # CPU: none
+
+
+@pytest.mark.parametrize("cut,late", [(0, 0), (3, 0), (0, 1)],
+                         ids=["whole", "window_past_end", "one_sample_late"])
+def test_decode_on_planes_reads_the_window_from_the_capture(cut, late,
+                                                            monkeypatch):
+    """decode() on planes hands K1 the capture and the window's start;
+    its rx_sig and rx_data equal the gathered window's compact tail and
+    the decode of the same capture as complex input, bit for bit (with
+    ``cut`` symbols of the payload cut off the capture's end, the window
+    reaches past it).  The start is the one ``rx.window_index`` places:
+    moved ``late`` samples there (the fault the benchmark's check plants
+    that way), both decodes read the later window."""
+    cfg = oracle.PMID
+    spec = simulator.ChannelSpec(snr_db=30.0, delay=2000, seed=5)
+    cap = simulator.simulate_capture(cfg, spec, device="cpu")[0]
+    sym = cfg.symbol_len
+    if cut:
+        cap = cap[:, :2000 + cap.shape[-1] // 2 + 4 * sym].contiguous()
+    planes = (cap.real.contiguous(), cap.imag.contiguous())
+    T, plen = cap.shape[-1], cfg.pid_max * sym
+    real = rx.window_index
+    monkeypatch.setattr(rx, "window_index", lambda start, n, *a: real(
+        start + late if n == plen else start, n, *a))
+    r = rx.decode(planes, cfg, sync_impl="pallas")
+    assert bool(r.synced)
+    cstart = torch.clamp(r.sync_index, 0, T) + r.decode_start - sym + late
+    if cut:
+        assert int(cstart) + plen > T
+    win = real(cstart, plen, T, torch.device("cpu"))
+    sig, data = pf.payload_fused_strip(
+        *(rx.gather_window(p, win) for p in planes), r.W, r.normalize_gain,
+        constellation.table(cfg.modulation),
+        np.float32(1.0 / np.sqrt(cfg.M_occupied)), n_sym=cfg.pid_max,
+        symbol_len=sym, cp_len=cfg.cp_len)
+    S = cfg.num_streams
+    assert torch.equal(r.rx_sig, sig.reshape(S, -1))
+    assert torch.equal(r.rx_data, data.reshape(S, -1))
+    c = rx.decode(cap, cfg, sync_impl="pallas")
+    assert torch.equal(r.rx_sig, c.rx_sig)
+    assert torch.equal(r.rx_data, c.rx_data)
+
+
 def test_strip_supported_gate():
     assert pf.strip_supported(2048, 2, 32)
     assert pf.strip_supported(64, 4, 64)
@@ -178,6 +259,14 @@ def test_kernel_input_checks():
     for args in bad:
         with pytest.raises(ValueError):
             pf._check(*args, n_sym, M + cp, cp)
+    # a capture's planes of any length at a one-element int64 start
+    cap = torch.zeros((S, 1000))
+    pf._check(cap, cap, W, g, tab, n_sym, M + cp, cp,
+              start=torch.tensor(-7))
+    for start in (3, torch.tensor(3, dtype=torch.int32),
+                  torch.tensor([1, 2]), torch.tensor(3).to("meta")):
+        with pytest.raises(ValueError, match="start"):
+            pf._check(cap, cap, W, g, tab, n_sym, M + cp, cp, start=start)
     kw = dict(n_sym=n_sym, symbol_len=M + cp, cp_len=cp)
     meta = [t.to("meta") for t in (p, p, W, g)]
     with pytest.raises(ValueError, match="no kernel"):
