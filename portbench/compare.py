@@ -2,8 +2,9 @@
 receiver's.
 
 For each answer kept from the window (a sample drawn from the seed), the
-plain receiver (``reference.rx``, float64) decodes the same capture, and
-these numbers are taken over the sample:
+configuration's plain receiver (``Registry.receiver``: ``reference.rx``
+unless the configuration names another; float64) decodes the same
+capture, and these numbers are taken over the sample:
 
   sync_mismatches   answers whose ``synced`` differs from the
                     reference's, or, where both found the frame, whose
@@ -54,8 +55,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from portbench.reference import rx as ref_rx
-from portbench.reference.tables import Modem, points
+from portbench.registry import Receiver
 
 NUMBERS = ("sync_mismatches", "g_rel_err", "sig_err_per_cond",
            "data_mismatches", "msg_mismatches")
@@ -64,11 +64,11 @@ NUMBERS = ("sync_mismatches", "g_rel_err", "sig_err_per_cond",
 MSG_BLOCK = 8  # answers whose symbols one plain Viterbi call decodes
 
 
-def judge_one(got: dict, want: dict, md: Modem, limits: dict,
+def judge_one(got: dict, want: dict, rcv: Receiver, md, limits: dict,
               T: int) -> dict:
-    """The numbers of one answer against the reference's (T: the
-    capture's length), but msg_mismatches; a relative error is 0.0
-    where nothing is judged."""
+    """The numbers of one answer against the reference's (md: the
+    receiver's Modem of the configuration, T: the capture's length), but
+    msg_mismatches; a relative error is 0.0 where nothing is judged."""
     out = {"sync_mismatches": int(bool(got["synced"]) != want["synced"]),
            "g_rel_err": 0.0, "sig_err_per_cond": 0.0, "data_mismatches": 0}
     if not (want["synced"] and bool(got["synced"])):
@@ -88,45 +88,46 @@ def judge_one(got: dict, want: dict, md: Modem, limits: dict,
     rms = float(want["rx_sig"].abs().pow(2).mean().sqrt())
     sig_err = float((sig - want["rx_sig"]).abs().max()) / rms
     out["sig_err_per_cond"] = sig_err / want["cond"]
-    c_max = float(np.abs(points(md.modulation)).max())
+    c_max = float(np.abs(rcv.points(md.modulation)).max())
     band = 2 * c_max * limits["sig_err_per_cond"] * want["cond"] * rms
     differ = got["rx_data"].to(dev) != want["rx_data"]
     out["data_mismatches"] = int((differ & (want["margin"] > band)).sum())
     return out
 
 
-def message_mismatches(answers: list, md: Modem, limits: dict,
+def message_mismatches(answers: list, rcv: Receiver, md, limits: dict,
                        device) -> list:
     """msg_mismatches of each answer: its bits against the plain back end
     decoding its own equalized symbols, in the windows whose tie margin
     is above viterbi_tie_band; MSG_BLOCK answers a decode."""
-    p = ref_rx.Precision("float64")
+    p = rcv.Precision("float64")
     out = []
     for a in range(0, len(answers), MSG_BLOCK):
         block = answers[a:a + MSG_BLOCK]
         y = torch.cat([g["rx_sig"].to(device).to(torch.complex128)
                        for g in block])
-        msg, ties = ref_rx.decode_bits(y, md, p)
+        msg, ties = rcv.decode_bits(y, md, p)
         got = torch.cat([g["msg"].to(device) for g in block])
         differ = (got != msg) & (ties > limits["viterbi_tie_band"])
         out += [int(v) for v in differ.reshape(len(block), -1).sum(-1)]
     return out
 
 
-def reference_answers(pool, indices, md: Modem, limits: dict,
+def reference_answers(pool, indices, rcv: Receiver, md, limits: dict,
                       precision: str = "float64") -> dict:
     """pool index -> the plain receiver's answers, one capture at a time."""
-    return {i: ref_rx.receive(pool.capture(i), md, precision,
-                              tie_band=limits["tie_band"])
+    return {i: rcv.receive(pool.capture(i), md, precision,
+                           tie_band=limits["tie_band"])
             for i in sorted(set(indices))}
 
 
-def judge(kept: list, refs: dict, md: Modem, limits: dict, T: int,
+def judge(kept: list, refs: dict, rcv: Receiver, md, limits: dict, T: int,
           coded: bool = False) -> dict:
     """The numbers over the kept answers [(request, pool index, answer)]:
     counts summed, relative errors their maximum; with each answer's
     verdict."""
-    ones = [judge_one(got, refs[i], md, limits, T) for _, i, got in kept]
+    ones = [judge_one(got, refs[i], rcv, md, limits, T)
+            for _, i, got in kept]
     if coded:
         both = [k for k, (_, i, got) in enumerate(kept)
                 if refs[i]["synced"] and bool(got["synced"])]
@@ -134,8 +135,8 @@ def judge(kept: list, refs: dict, md: Modem, limits: dict, T: int,
             one["msg_mismatches"] = 0
         if both:
             device = refs[kept[both[0]][1]]["G"].device
-            counts = message_mismatches([kept[k][2] for k in both], md,
-                                        limits, device)
+            counts = message_mismatches([kept[k][2] for k in both], rcv,
+                                        md, limits, device)
             for k, v in zip(both, counts):
                 ones[k]["msg_mismatches"] = v
     total = {}

@@ -6,14 +6,14 @@
 in one process on the card: the program's numbers on each of ``--seeds``
 seeds (a short window of the cell's own traffic and the run's own
 sample, through ``harness.run_cell``), and on the first
-``--control-seeds`` seeds those of the plain receiver put in the
-program's place: the control, computed in bfloat16 (``reference.rx``'s
-"bfloat16" precision, the step below the float32 the configurations
-state), and the witness, computed in float32 (what float32 arithmetic
-alone gives), each judged on as many captures of the pool as a run
-checks (the traffic's ``check_sample``, the pool's first).  Each
-``--seed`` adds one more seed on which the program is read.  One JSON
-line a reading.  The benchmark's own runs
+``--control-seeds`` seeds those of the configuration's plain receiver
+(``Registry.receiver``) put in the program's place: the control,
+computed in bfloat16 (its "bfloat16" precision, the step below the
+float32 the configurations state), and the witness, computed in
+float32 (what float32 arithmetic alone gives), each judged on as many
+captures of the pool as a run checks (the traffic's ``check_sample``,
+the pool's first).  Each ``--seed`` adds one more seed on which the
+program is read.  One JSON line a reading.  The benchmark's own runs
 never run this.
 """
 
@@ -53,24 +53,23 @@ def control_readings(reg, cell_name: str, seed: int, device: str,
     program's place, on the first ``check_sample`` captures of the
     seed's pool."""
     from portbench import compare, pool as pool_mod
-    from portbench.reference import rx as ref_rx
-    from portbench.reference.tables import Modem
 
     cell = reg.cell(cell_name)
     config = reg.config(cell["config"])
     traffic = reg.traffic(cell["traffic"])
-    md = Modem(config["modem"])
+    rcv = reg.receiver(config)
+    md = rcv.Modem(config["modem"])
     limits, coded = config["limits"], bool(config.get("fec"))
     T = traffic["capture_samples"]
     pool = pool_mod.make(md, traffic, seed, device, coded)
     n = min(traffic["check_sample"], pool.re.shape[0])
     kept = []
     for i in range(n):
-        r = ref_rx.receive(pool.capture(i), md, precision,
-                           tie_band=limits["tie_band"], coded=coded)
+        r = rcv.receive(pool.capture(i), md, precision,
+                        tie_band=limits["tie_band"], coded=coded)
         kept.append((i, i, as_answer(r, md, T)))
-    refs = compare.reference_answers(pool, range(n), md, limits)
-    return compare.judge(kept, refs, md, limits, T, coded)
+    refs = compare.reference_answers(pool, range(n), rcv, md, limits)
+    return compare.judge(kept, refs, rcv, md, limits, T, coded)
 
 
 def main(argv=None) -> int:

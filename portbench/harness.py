@@ -1,5 +1,5 @@
 """One run of one cell: set-up, the measured window, the readers, the
-check against the plain receiver.
+check against the configuration's plain receiver.
 
 The window is a closed loop over the pool: the host serves capture n
 (pool index n mod pool size) as soon as capture n - in_flight has
@@ -23,8 +23,6 @@ from types import SimpleNamespace
 import torch
 
 from portbench import compare, pool as pool_mod
-from portbench.reference import rx as ref_rx
-from portbench.reference.tables import Modem
 from portbench.registry import Registry
 from portbench.trace import Trace
 
@@ -166,7 +164,11 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
     cell = reg.cell(cell_name)
     config = reg.config(cell["config"])
     traffic = reg.traffic(cell["traffic"])
-    md = Modem(config["modem"])
+    try:
+        rcv = reg.receiver(config)
+    except KeyError as e:
+        raise NoResult(e.args[0]) from e
+    md = rcv.Modem(config["modem"])
     limits = config["limits"]
     coded = bool(config.get("fec"))
     if device == "cuda":
@@ -218,15 +220,15 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *,
 
     T = traffic["capture_samples"]
     refs = compare.reference_answers(pool, [i for _, i, _ in res["kept"]],
-                                     md, limits)
+                                     rcv, md, limits)
     answer = getattr(path, "answer", lambda out: out)
     kept = [(n, i, answer(out)) for n, i, out in res["kept"]]
-    verdict = compare.judge(kept, refs, md, limits, T, coded)
+    verdict = compare.judge(kept, refs, rcv, md, limits, T, coded)
     del path, kept
     t_star = {}
     if tr is not None:  # K5's bound needs each traced capture's t*
-        f64 = ref_rx.Precision("float64")
-        t_star = {i: refs[i]["t_star"] if i in refs else ref_rx.synchronize(
+        f64 = rcv.Precision("float64")
+        t_star = {i: refs[i]["t_star"] if i in refs else rcv.synchronize(
                       f64(pool.capture(i)), md, f64)["t_star"]
                   for i in set(tr.pool_indices)}
     ctx = SimpleNamespace(registry=reg, cell=cell, config=config,

@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from portbench.reference import tx
-from portbench.reference.tables import Modem
 
 
 class Pool(NamedTuple):
@@ -49,7 +48,7 @@ def delays(rng: np.random.Generator, lo: int, hi: int, n: int) -> np.ndarray:
     return d.astype(np.int64)[rng.permutation(n)]
 
 
-def check(md: Modem, traffic: dict) -> None:
+def check(md, traffic: dict) -> None:
     lo, hi = traffic["delay"]
     if not 0 <= lo <= hi or hi + md.frame_len > traffic["capture_samples"]:
         raise ValueError(f"frames of {md.frame_len} samples at delays "
@@ -57,8 +56,10 @@ def check(md: Modem, traffic: dict) -> None:
                          f"{traffic['capture_samples']}")
 
 
-def make(md: Modem, traffic: dict, seed: int, device,
+def make(md, traffic: dict, seed: int, device,
          coded: bool = False) -> Pool:
+    """The pool of ``traffic`` for a configuration's Modem ``md`` (its
+    plain receiver's, ``Registry.receiver``)."""
     check(md, traffic)
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device)

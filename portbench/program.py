@@ -25,6 +25,8 @@ def modem_config(modem: dict):
     kw["modulation"] = c.Modulation(kw["modulation"])
     kw["detector"] = c.Detector(kw.get("detector", "zf"))
     kw["mode"] = c.CommMode(kw.get("mode", "rx_zf"))
+    if "lfsr_large_polys" in kw:  # a JSON list; the config is hashed
+        kw["lfsr_large_polys"] = tuple(kw["lfsr_large_polys"])
     return c.ModemConfig(**kw).validate()
 
 

@@ -4,8 +4,10 @@
 configuration's file, each traffic mix (``traffic/<name>.json``), each
 metric's reader (``metrics/<name>.py``), each layer's kernel-name
 patterns (``layers/<name>.json``) and each kernel's bound
-(``rooflines/<kernel>.py``) is looked up by that name, so a cell, a
-metric, a layer or a kernel is added by adding its files and entries.
+(``rooflines/<kernel>.py``) is looked up by that name, and so is the
+plain receiver that a configuration names (``reference/<name>.py``), so a
+cell, a configuration, a metric, a layer or a kernel is added by adding
+its files and entries.
 """
 
 from __future__ import annotations
@@ -13,9 +15,28 @@ from __future__ import annotations
 import importlib.util
 import json
 from pathlib import Path
+from typing import Callable, NamedTuple
+
+from portbench.reference import rx, tables
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+
+
+class Receiver(NamedTuple):
+    """A configuration's plain receiver: what the generator, the check,
+    the control and K5's bound take from the reference."""
+
+    Modem: type             # Modem(modem dict): its gates, derived sizes
+    Precision: type         # Precision("float64" | "float32" | "bfloat16")
+    receive: Callable       # receive(x, md, precision, *, tie_band, coded)
+    synchronize: Callable   # synchronize(x, md, p, tie_band) -> t_star, ...
+    decode_bits: Callable   # decode_bits(y, md, p) -> (bits, tie margins)
+    points: Callable        # points(modulation) -> the constellation
+
+
+TODAY = Receiver(tables.Modem, rx.Precision, rx.receive,
+                 rx.synchronize, rx.decode_bits, tables.points)
 
 
 class Registry:
@@ -37,6 +58,25 @@ class Registry:
             if c["name"] == name:
                 return json.loads((self.root / c["file"]).read_text())
         raise KeyError(f"no config named {name!r} in BENCHMARK.json")
+
+    def receiver(self, config: dict) -> Receiver:
+        """The plain receiver of a configuration: ``reference/<name>.py``
+        for its ``"reference": "<name>"``, each part of ``Receiver`` that
+        the module does not define taken from ``reference.tables`` and
+        ``reference.rx``; without the key, those of today's.  KeyError
+        where no such module is there."""
+        name = config.get("reference")
+        if name is None:
+            return TODAY
+        path = self.dir / "reference" / f"{name}.py"
+        if not (isinstance(name, str) and name.isidentifier()
+                and path.is_file()):
+            raise KeyError(f"no plain receiver named {name!r} "
+                           f"(reference/<name>.py) for configuration "
+                           f"{config.get('name')!r}")
+        mod = _load(path)
+        return TODAY._replace(**{k: getattr(mod, k) for k in Receiver._fields
+                                 if hasattr(mod, k)})
 
     def traffic(self, name: str) -> dict:
         return json.loads((self.dir / "traffic" / f"{name}.json").read_text())

@@ -242,10 +242,41 @@ def test_nothing_under_portbench_imports_jax_or_the_jax_package():
     assert "rub_mimo_tpu_torch" in imports(HERE / "program.py")
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    for f in list((HERE / "reference").rglob("*.py")) + [
-            HERE / "pool.py", HERE / "compare.py", HERE / "roofline.py"]:
-        assert "rub_mimo_tpu_torch" not in imports(f), f
+REFERENCE_FILES = sorted(
+    str(f.relative_to(HERE)) for f in (HERE / "reference").rglob("*")
+    if f.is_file() and "__pycache__" not in f.parts)
+
+
+@pytest.mark.parametrize("name", REFERENCE_FILES + [
+    "pool.py", "compare.py", "roofline.py", "registry.py"])
+def test_the_reference_imports_nothing_of_the_program(name):
+    """Every file under reference/ (a receiver module a configuration
+    names included) is Python that imports neither the program nor JAX."""
+    f = HERE / name
+    assert f.suffix == ".py", f
+    assert not imports(f) & (FORBIDDEN | {"rub_mimo_tpu_torch"}), f
+
+
+def test_only_the_registry_reaches_the_plain_receiver():
+    """Outside registry.py and reference/, no module of the benchmark
+    imports reference.rx or reference.tables: the harness, the check and
+    the control take the receiver from ``Registry.receiver``."""
+    for f in sorted(HERE.rglob("*.py")):
+        rel = f.relative_to(HERE)
+        if rel.parts[0] in ("reference", "tests") or rel == Path(
+                "registry.py"):
+            continue
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module + "." + a.name for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            for n in names:
+                assert not n.startswith(("portbench.reference.rx",
+                                         "portbench.reference.tables")), \
+                    (rel, n)
 
 
 def test_forbidden_modules_compares_whole_names(monkeypatch):

@@ -4,7 +4,8 @@
 traffic into ``tmp/portbench`` and writes a BENCHMARK.json of two cells
 on small configurations: ``tiny.replay`` (QPSK, M = 64) and
 ``tiny.fec`` (16-QAM, coded).  The configurations keep the real ones'
-options and limits; only the sizes are cut.
+options and limits; only the sizes are cut.  ``add_cell`` adds one more
+configuration and its cell to such a tree.
 """
 
 from __future__ import annotations
@@ -48,5 +49,25 @@ def tree(tmp: Path) -> Registry:
     for m in manifest["per_layer"]:
         if "workloads" in m:
             m["workloads"] = ["tiny.fec"]
+    (Path(tmp) / "BENCHMARK.json").write_text(json.dumps(manifest))
+    return Registry(Path(tmp), bench)
+
+
+def add_cell(tmp: Path, name: str, modem=None, **top) -> Registry:
+    """Add to ``tree(tmp)`` the configuration ``name`` (tiny_ref's, its
+    modem updated by ``modem`` and its top level by ``top``) and the cell
+    ``tiny.<name>`` of it on the tiny traffic; returns the registry."""
+    bench = Path(tmp) / "portbench"
+    cfg = json.loads((bench / "configs" / "tiny_ref.json").read_text())
+    cfg["modem"].update(modem or {})
+    cfg.update(top, name=name)
+    (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
+    manifest = json.loads((Path(tmp) / "BENCHMARK.json").read_text())
+    manifest["configs"].append({"name": name, "source": "tiny",
+                                "file": f"portbench/configs/{name}.json",
+                                "reduced": [], "why": "tiny"})
+    manifest["workloads"].append({"name": f"tiny.{name}", "config": name,
+                                  "traffic": "tiny", "chips": 1,
+                                  "why": "tiny"})
     (Path(tmp) / "BENCHMARK.json").write_text(json.dumps(manifest))
     return Registry(Path(tmp), bench)
